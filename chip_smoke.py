@@ -1,0 +1,506 @@
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py [--out results.json]
+
+Phases, each printing one JSON line with its seconds:
+
+1. the card: ``torch.cuda.is_available()`` (exit 1 without a card) and
+   its ``nvidia-smi`` name and power limit;
+2. build: both CUDA kernels from ``mraudio_tpu_torch/csrc`` with nvcc for
+   sm_90a, in parallel;
+3. kernels: each kernel's wrapper at the main path's shapes, held against
+   its plain PyTorch version on the same inputs, and timed beside its
+   bound and one PyTorch library call computing the same function;
+4. small reference: a narrow slice model (head_dim 128) generates on the
+   card and on the CPU (plain versions) from the same weights; the
+   prefill logits must agree;
+5. full-width generate: X-InstructBLIP (EVA-ViT-g, BEATs, two Q-Formers,
+   int8 Vicuna-7B with int8 KV cache) on 3 synthetic QVHighlights clips
+   (60 frames of 224² RGB, 152 s of 16 kHz audio), random weights from a
+   seed; launch counts are read around this run and asserted;
+6. profile: one more generate under ``torch.profiler``: each phase's
+   (encode, prefill, decode) device time per kernel and idle share.
+
+The last three lines are the card's ``nvidia-smi`` name and power limit,
+the per-kernel summary ``{"kernels": [...]}``, and
+``{"ok": true, "device": {...}}``.  Any failed check raises: the run then
+exits non-zero and prints no ``ok`` line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+# H100 SXM datasheet peaks (dense): the bound column of the kernel table.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_TENSOR_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12           # CUDA-core f32 FMA rate (the GEMV's arithmetic)
+# flash vs plain, per element: |out - ref| <= 2 bf16 ulps of |ref| (both
+# are rounded to bf16) + 2^-6 of the rms of ref's (b, h, query) row (the
+# kernel rounds the probabilities to bf16 before p·v, the plain version
+# keeps them in f32: a relative error of about 2^-9 per term).
+FLASH_ULPS = 2
+FLASH_ROW_REL = 2.0 ** -6
+SMALL_LOGIT_ATOL = 3e-2                  # bf16 model, card vs CPU rounding
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
+    """Mean milliseconds per call over ``iters`` calls, CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes: float, flops: float, peak_flops: float):
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# --------------------------------------------------------------------------
+# Phase 3: kernels at main-path shapes
+# --------------------------------------------------------------------------
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    mag = x.float().abs().clamp_min(1e-30)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def flash_excess(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """Largest |out - ref| over its limit (FLASH_ULPS, FLASH_ROW_REL);
+    the check passes at <= 1."""
+    r = ref.float()
+    limit = FLASH_ULPS * _bf16_ulp(r) + FLASH_ROW_REL * r.square().mean(-1, keepdim=True).sqrt()
+    return float(((out.float() - r).abs() / limit).max())
+
+
+def check_flash(dev, b, h, s, kv, d, gen):
+    from mraudio_tpu_torch.ops.attention import flash_attention, flash_attention_plain
+
+    # the prefill's layout: (B, S, H, D) buffers read through transposed views
+    q = torch.randn((b, s, h, d), generator=gen, device=dev).to(torch.bfloat16).transpose(1, 2)
+    k = torch.randn((b, kv, h, d), generator=gen, device=dev).to(torch.bfloat16).transpose(1, 2)
+    v = torch.randn((b, kv, h, d), generator=gen, device=dev).to(torch.bfloat16).transpose(1, 2)
+    mask = torch.ones((b, kv), dtype=torch.int32, device=dev)
+    mask[:, s:] = 0                 # cache columns the prefill has not written
+    mask[0, 0] = 0                  # query row 0 of batch row 0: fully masked
+    mask[1, 1000:1040] = 0          # interior padding (timestamp slots)
+    mask[2, :17] = 0                # left padding
+    out = flash_attention(q, k, v, mask, causal=True)
+    ref = flash_attention_plain(q, k, v, mask, causal=True)
+    torch.cuda.synchronize()
+    max_err = float((out.float() - ref.float()).abs().max())
+    excess = flash_excess(out, ref)
+    if not excess <= 1.0:
+        raise AssertionError(f"flash_attention disagrees with its plain version: "
+                             f"max |err| {max_err}, {excess} x its limit")
+    if not bool((out[0, :, 0] == 0).all()):
+        raise AssertionError("flash_attention: fully masked row is not exactly 0")
+    if not bool(torch.isfinite(out.float()).all()):
+        raise AssertionError("flash_attention: non-finite output")
+    # controls: the output of a kernel that ignored the interior padding,
+    # or skipped one kv tile, must fail the same check
+    controls = {}
+    for name, cols, value in (("interior_padding_ignored", (1, slice(1000, 1040)), 1),
+                              ("kv_tile_skipped", (2, slice(3008, 3072)), 0)):
+        bad_mask = mask.clone()
+        bad_mask[cols] = value
+        controls[name] = flash_excess(flash_attention(q, k, v, bad_mask, causal=True), ref)
+        if not controls[name] > 1.0:
+            raise AssertionError(f"flash check cannot tell {name}: {controls[name]} x its limit")
+
+    ms = cuda_ms(lambda: flash_attention(q, k, v, mask, causal=True), iters=10)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, mask, causal=True), iters=2)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    causal = torch.ones((s, kv), dtype=torch.bool, device=dev).tril()
+    attn_mask = (causal[None] & mask[:, None, :].bool())[:, None]      # (B, 1, S, KV)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = cuda_ms(lambda: sdpa(qc, kc, vc, attn_mask=attn_mask), iters=5)
+
+    # the work these inputs need: (query, key) pairs that are attended
+    valid_pairs = 0
+    for bi in range(b):
+        prefix_valid = torch.cumsum(mask[bi].long(), 0)               # valid keys <= column
+        valid_pairs += int(prefix_valid[:s].sum())
+    flops = 4.0 * h * d * valid_pairs
+    nbytes = 2.0 * (2 * b * h * s * d + 2 * b * h * kv * d) + 4.0 * b * kv
+    bms, by = bound_ms(nbytes, flops, PEAK_BF16_TENSOR_FLOPS)
+    return dict(name="flash_attention", max_abs_err=max_err, err_over_limit=excess,
+                controls_err_over_limit=controls, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bms, bound_by=by,
+                shape=dict(b=b, h=h, s=s, kv=kv, d=d), flops=flops, bytes=nbytes)
+
+
+def check_gemv(dev, b, kdim, n, int8, gen, cold_bytes=160e6):
+    from mraudio_tpu_torch.ops.gemv import decode_gemv, decode_gemv_plain
+
+    x = torch.randn((b, kdim), generator=gen, device=dev).to(torch.bfloat16)
+    wbytes = kdim * n * (1 if int8 else 2)
+    copies = max(1, int(np.ceil(cold_bytes / wbytes)))   # rotate past the 50 MB L2
+    if int8:
+        ws = [torch.randint(-127, 128, (kdim, n), generator=gen, device=dev, dtype=torch.int8)
+              for _ in range(copies)]
+        scale = torch.rand((n,), generator=gen, device=dev) * (0.02 / 73.6) + 1e-4
+    else:
+        ws = [(torch.randn((kdim, n), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+              for _ in range(copies)]
+        scale = None
+    w = ws[0]
+    y = decode_gemv(x, w, scale)
+    y2 = decode_gemv(x, w, scale)
+    y3 = decode_gemv(x, w, scale, block_n=64, block_k=64)
+    ref = decode_gemv_plain(x, w, scale)
+    torch.cuda.synchronize()
+    if not torch.equal(y, y2):
+        raise AssertionError(f"decode_gemv {kdim}x{n}: two launches differ")
+    if not torch.equal(y, y3):
+        raise AssertionError(f"decode_gemv {kdim}x{n}: tile widths 32/128 vs 64/64 differ")
+    err = (y.float() - ref.float()).abs()
+    if not bool((err <= _bf16_ulp(ref)).all()):
+        raise AssertionError(f"decode_gemv {kdim}x{n}: more than 1 bf16 ulp from plain")
+    max_err = float(err.max())
+
+    it = [0]
+
+    def run(fn):
+        def call():
+            it[0] = (it[0] + 1) % copies
+            return fn(ws[it[0]])
+        return call
+
+    ms = cuda_ms(run(lambda wi: decode_gemv(x, wi, scale)), iters=50)
+    plain_ms = cuda_ms(run(lambda wi: decode_gemv_plain(x, wi, scale)), iters=10)
+    if int8:   # the library call reads pre-dequantized bf16 weights: 2x the bytes
+        deq = [(wi.float() * scale).to(torch.bfloat16) for wi in ws[:max(1, copies // 2)]]
+    else:
+        deq = ws
+    lib_it = [0]
+
+    def lib():
+        lib_it[0] = (lib_it[0] + 1) % len(deq)
+        return torch.mm(x, deq[lib_it[0]])
+
+    library_ms = cuda_ms(lib, iters=50)
+    nbytes = wbytes + 2.0 * b * kdim + 2.0 * b * n + (4.0 * n if int8 else 0.0)
+    flops = 2.0 * b * kdim * n
+    bms, by = bound_ms(nbytes, flops, PEAK_F32_FLOPS)
+    return dict(name=f"decode_gemv {'int8' if int8 else 'bf16'} {kdim}x{n}", b=b,
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                library_note="torch.mm on pre-dequantized bf16 weights" if int8 else "torch.mm",
+                bound_ms=bms, bound_by=by, bytes=nbytes)
+
+
+def check_decode_attention(dev, b, h, kv, d, gen):
+    """Plain int8 decode attention (no kernel: the reference runs it in
+    XLA) timed at the decode shape, one layer, one step."""
+    from mraudio_tpu_torch.models.llama import quantize_kv
+    from mraudio_tpu_torch.ops.attention import decode_attention
+
+    q = torch.randn((b, 1, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    kq, ks = quantize_kv(torch.randn((b, kv, h, d), generator=gen, device=dev))
+    vq, vs = quantize_kv(torch.randn((b, kv, h, d), generator=gen, device=dev))
+    mask = torch.ones((b, kv), dtype=torch.int32, device=dev)
+    ks, vs = ks.transpose(1, 2).contiguous(), vs.transpose(1, 2).contiguous()
+    ms = cuda_ms(lambda: decode_attention(q, kq, vq, mask, ks, vs), iters=20)
+    nbytes = 2.0 * b * kv * h * d + 2 * 4.0 * b * h * kv
+    return dict(name="decode_attention (plain, int8 KV)", ms=ms,
+                bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes")
+
+
+# --------------------------------------------------------------------------
+# Phases 4 and 5: models
+# --------------------------------------------------------------------------
+
+
+def qvh_batch(b: int, n_frms: int, image: int, seconds: float, rate: int, seed: int):
+    from mraudio_tpu_torch.models.xinstructblip import GenerateBatch
+    from mraudio_tpu_torch.text.prompts import build_query_prompt
+
+    rng = np.random.default_rng(seed)
+    duration = [150, 150, 148][:b] + [150] * max(0, b - 3)
+    stamps = np.stack([np.linspace(0, d, n_frms, endpoint=False).astype(np.int32)
+                       for d in duration])
+    t = np.arange(int(seconds * rate)) / rate
+    audio = np.stack([
+        (3000 * np.sin(2 * np.pi * (220 + 110 * i) * t)
+         + rng.normal(0, 800, t.shape)).astype(np.int16) for i in range(b)])
+    queries = ["a man in a red jacket talks to the camera on a busy street",
+               "two dogs chase a ball across the beach at sunset",
+               "a woman slices vegetables and adds them to a pan"]
+    return GenerateBatch(
+        video=rng.integers(0, 256, (b, n_frms, image, image, 3), dtype=np.uint8),
+        audio=audio,
+        timestamps=stamps,
+        duration=duration,
+        text_input=[build_query_prompt(queries[i % 3]) for i in range(b)],
+    )
+
+
+def build_model(cfg, audio_cfg, device, seed):
+    from mraudio_tpu_torch.models.casting import cast_params_for_inference
+    from mraudio_tpu_torch.models.convert_jax import init_random_
+    from mraudio_tpu_torch.models.xinstructblip import XInstructBLIP
+
+    model = XInstructBLIP(cfg, audio_cfg=audio_cfg, device=device)
+    init_random_(model, seed=seed)
+    return cast_params_for_inference(model)
+
+
+def small_reference(dev):
+    """The slice at narrow width with head_dim 128 (the kernels' shape
+    class): the card's run (kernels) against the CPU's (plain versions),
+    same weights."""
+    from mraudio_tpu_torch.config import AudioFrontendConfig, slice_model_config, tiny_model_config
+    from mraudio_tpu_torch.infer.generate import prefill_cache
+    from mraudio_tpu_torch.models.casting import cast_params_for_inference
+    from mraudio_tpu_torch.models.xinstructblip import XInstructBLIP
+
+    base = tiny_model_config(quantization="int8")
+    llm = base.llm.replace(hidden_size=256, num_heads=2, num_kv_heads=2, intermediate_size=512,
+                           kv_quant="int8", vocab_pad_multiple=8)
+    cfg = slice_model_config(base.replace(llm=llm))
+    audio_cfg = AudioFrontendConfig(num_mel_bins=16, mel_frames_per_chunk=32)
+    cpu = build_model(cfg, audio_cfg, "cpu", seed=1)
+    gpu = XInstructBLIP(cfg, audio_cfg=audio_cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    cast_params_for_inference(gpu)
+    batch = qvh_batch(3, 4, 28, 3.0, 16000, seed=2)
+
+    results = {}
+    for name, model in (("cpu", cpu), ("cuda", gpu)):
+        with torch.inference_mode():
+            text = model.prepare_text(batch.text_input, batch.timestamps, batch.duration)
+            embeds, mask = model.prefix_embeds(*model.device_inputs(batch), text, 4)
+            b, s = mask.shape
+            pos = (torch.cumsum(mask, -1) - 1).clamp_min(0)
+            full = torch.zeros((b, s + 8), dtype=torch.int32, device=mask.device)
+            full[:, :s] = mask
+            hidden, _ = prefill_cache(model.llm, embeds, pos, full, s + 8)
+            logits = model.llm.logits(hidden[:, -1]).cpu()
+        texts = model.generate(batch=batch)
+        results[name] = (logits, texts)
+    v = cfg.llm.vocab_size
+    err = float((results["cuda"][0][:, :v] - results["cpu"][0][:, :v]).abs().max())
+    if not err <= SMALL_LOGIT_ATOL:
+        raise AssertionError(f"small model: card vs CPU prefill logits differ by {err}")
+    same = results["cuda"][1] == results["cpu"][1]
+    return dict(prefill_logit_max_abs_err=err, tol=SMALL_LOGIT_ATOL,
+                texts_equal=same, texts_cuda=results["cuda"][1], texts_cpu=results["cpu"][1])
+
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def profile_generate(model, batch, unprofiled: dict, top: int = 12) -> dict:
+    """One more ``generate`` under ``torch.profiler``.  For each phase span
+    (``encode``, ``prefill``, ``decode``) on the host: the device time of
+    every kernel launched inside it, the union of those intervals (busy),
+    and the idle share ``1 - busy / span``.  The profiler slows the host,
+    so the idle share is also given against the unprofiled run's phase
+    seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model.generate(batch=batch, stats={})
+    trace = Path(__file__).resolve().parent / "build" / "profile" / "generate_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    trace.unlink()
+    spans = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e.get("name") in ("encode", "prefill", "decode")}
+    if sorted(spans) != ["decode", "encode", "prefill"]:
+        raise AssertionError(f"profile: phase spans {sorted(spans)} in the trace")
+    device = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                    if e.get("cat") in DEVICE_CATS)
+    phases = {}
+    for phase, (t0, t1) in spans.items():
+        busy, reach, per_name = 0.0, t0, {}
+        for a, z, name in device:
+            if not t0 <= a < t1:
+                continue
+            z = min(z, t1)
+            busy += max(0.0, z - max(a, reach))
+            reach = max(reach, z)
+            ms, calls = per_name.get(name, (0.0, 0))
+            per_name[name] = (ms + (z - a) / 1e3, calls + 1)
+        if busy <= 0:
+            raise AssertionError(f"profile: no device time in the {phase} span")
+        ranked = sorted(per_name.items(), key=lambda kv: -kv[1][0])
+        device_ms = sum(ms for ms, _ in per_name.values())
+        phases[phase] = dict(
+            span_ms=(t1 - t0) / 1e3, device_busy_ms=busy / 1e3, idle_share=1 - busy / (t1 - t0),
+            unprofiled_ms=unprofiled[f"{phase}_s"] * 1e3,
+            idle_share_vs_unprofiled=1 - busy / 1e3 / (unprofiled[f"{phase}_s"] * 1e3),
+            kernel_names=len(per_name),
+            top=[dict(name=name.removeprefix("void ")[:96], ms=ms, calls=calls,
+                      share_of_device=ms / device_ms) for name, (ms, calls) in ranked[:top]])
+    return phases
+
+
+def full_generate(dev, seed: int = 0):
+    from mraudio_tpu_torch.config import DATASET_MAX_AUDIO_SECONDS, DATASET_N_FRMS
+    from mraudio_tpu_torch.config import AudioFrontendConfig, full_model_config, slice_model_config
+    from mraudio_tpu_torch.ops.attention import flash_attention
+    from mraudio_tpu_torch.ops.gemv import decode_gemv
+    from mraudio_tpu_torch.text.postprocess import moment_str_to_list, post_process
+
+    cfg = slice_model_config(full_model_config())
+    audio_cfg = AudioFrontendConfig(max_audio_seconds=DATASET_MAX_AUDIO_SECONDS["QVH"])
+    t0 = time.perf_counter()
+    model = build_model(cfg, audio_cfg, dev, seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    batch = qvh_batch(3, DATASET_N_FRMS["QVH"], cfg.vit.image_size,
+                      DATASET_MAX_AUDIO_SECONDS["QVH"], audio_cfg.sampling_rate, seed=seed + 1)
+
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    flash_attention.launches = 0
+    decode_gemv.launches = 0
+    t1 = time.perf_counter()
+    texts = model.generate(batch=batch, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = {"flash_attention": flash_attention.launches, "decode_gemv": decode_gemv.launches}
+    steps = stats["decode_steps"]
+    layers = cfg.llm.num_layers
+    if launches["flash_attention"] != layers:
+        raise AssertionError(f"flash launches {launches['flash_attention']} != {layers}")
+    if launches["decode_gemv"] != 7 * layers * steps:
+        raise AssertionError(f"GEMV launches {launches['decode_gemv']} != 224 x {steps}")
+    if not bool(torch.isfinite(stats["prefill_logits"][:, :cfg.llm.vocab_size]).all()):
+        raise AssertionError("non-finite prefill logits")
+    if len(texts) != 3 or not 1 <= steps <= cfg.max_new_tokens:
+        raise AssertionError(f"unexpected output: {len(texts)} texts, {steps} steps")
+    windows = [moment_str_to_list(post_process(t)) for t in texts]
+    return dict(
+        layers=layers, init_s=init_s, params=n_params, param_bytes=param_bytes,
+        prefix_len=stats["prefix_len"], encode_s=stats["encode_s"],
+        prefill_s=stats["prefill_s"], decode_s=stats["decode_s"], decode_steps=steps,
+        wall_s=wall, clips_per_s=3 / wall,
+        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        launches=launches, texts=texts, windows=windows,
+    ), model, batch
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="", help="also write every phase's result to this JSON file")
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False — no card", file=sys.stderr)
+        return 1
+    from mraudio_tpu_torch.ops import build   # fails outside a checkout of the repo
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    results = {}
+
+    t = time.perf_counter()
+    card = card_line()
+    results["device"] = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
+                             name=torch.cuda.get_device_name(0))
+    emit({"phase": "device", **results["device"], "seconds": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    build_s = build.build_all()
+    for name in build.KERNELS:
+        build.load(name)
+    results["build"] = dict(nvcc_s=build_s)
+    emit({"phase": "build", **results["build"], "seconds": time.perf_counter() - t})
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t = time.perf_counter()
+    flash = check_flash(dev, 3, 32, 5353, 5417, 128, gen)
+    emit({"phase": "kernel", **flash})
+    gemvs = []
+    for kdim, n, int8 in ((4096, 4096, True), (4096, 11008, True), (11008, 4096, True),
+                          (4096, 4096, False)):
+        r = check_gemv(dev, 3, kdim, n, int8, gen)
+        emit({"phase": "kernel", **r})
+        gemvs.append(r)
+    dattn = check_decode_attention(dev, 3, 32, 5417, 128, gen)
+    emit({"phase": "plain_op", **dattn})
+    # one decoder layer's GEMVs: q, k, v, o (4096²), gate, up, down
+    per_layer = [gemvs[0]] * 4 + [gemvs[1]] * 2 + [gemvs[2]]
+    gemv_layer = {key: sum(r[key] for r in per_layer)
+                  for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    results["kernels"] = dict(flash=flash, gemv=gemvs, decode_attention=dattn,
+                              gemv_layer=gemv_layer)
+    emit({"phase": "kernels", "seconds": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    results["small"] = small_reference(dev)
+    emit({"phase": "small_reference", **results["small"], "seconds": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    full, model, batch = full_generate(dev)
+    results["full"] = full
+    emit({"phase": "full_generate", **full, "seconds": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    results["profile"] = profile_generate(model, batch, full)
+    del model
+    emit({"phase": "profile", **results["profile"], "seconds": time.perf_counter() - t})
+
+    kernels = [
+        dict(name="flash_attention", route="cuda",
+             source="mraudio_tpu_torch/csrc/flash_attention.cu",
+             replaces="mraudio_tpu/ops/attention.py:471",
+             launches=full["launches"]["flash_attention"],
+             max_abs_err=flash["max_abs_err"], ms=flash["ms"], plain_ms=flash["plain_ms"],
+             bound_ms=flash["bound_ms"], bound_by=flash["bound_by"],
+             library_ms=flash["library_ms"]),
+        dict(name="decode_gemv", route="cuda",
+             source="mraudio_tpu_torch/csrc/decode_gemv.cu",
+             replaces="mraudio_tpu/ops/gemv.py:109",
+             launches=full["launches"]["decode_gemv"],
+             max_abs_err=max(r["max_abs_err"] for r in gemvs),
+             per="one decoder layer: q,k,v,o,gate,up,down int8 at B=3",
+             bound_by="bytes", **gemv_layer),
+    ]
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1, default=str)
+    print(card, flush=True)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

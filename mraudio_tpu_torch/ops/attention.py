@@ -1,0 +1,120 @@
+"""Attention ops for the decoder: the flash-attention prefill kernel with
+its plain version, and the plain int8-KV decode attention.
+
+``flash_attention`` replaces the TPU kernel
+``mraudio_tpu/ops/attention.py::flash_attention`` (``_flash_kernel``).
+On CUDA tensors it launches ``csrc/flash_attention.cu`` (bound by
+tensor-core operations at the prefill shape; mma.sync bf16 tiles with an
+f32 online softmax, see the source); on CPU tensors it runs
+:func:`flash_attention_plain`, which computes the same function.
+
+``decode_attention`` is the one-token step over the int8 KV cache.  The
+JAX package runs it through XLA (``chunked_attention`` with the decode
+route's flags), so it stays plain PyTorch here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from mraudio_tpu_torch.models.layers import NEG_INF
+from mraudio_tpu_torch.ops import build
+
+
+def flash_attention_plain(q, k, v, mask, causal: bool = True,
+                          q_chunk: int = 1024) -> torch.Tensor:
+    """Plain version of the kernel: q (B, H, S, D), k/v (B, H, KV, D),
+    mask (B, KV) {0,1}; queries start at column 0.  Softmax in f32,
+    masked probabilities exactly 0, fully masked rows give 0.  Query
+    rows are processed ``q_chunk`` at a time to bound the f32 logits."""
+    b, h, s, d = q.shape
+    kv = k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    kf, vf = k.float(), v.float()
+    valid_kv = mask[:, None, None, :].bool()
+    kv_idx = torch.arange(kv, device=q.device)
+    outs = []
+    for q0 in range(0, s, q_chunk):
+        qc = q[:, :, q0:q0 + q_chunk].float()
+        logits = (qc @ kf.transpose(-1, -2)) * scale          # (B, H, c, KV)
+        valid = valid_kv
+        if causal:
+            q_idx = torch.arange(q0, q0 + qc.shape[2], device=q.device)
+            valid = valid & (kv_idx[None, :] <= q_idx[:, None])[None, None]
+        m = torch.where(valid, logits, NEG_INF).amax(dim=-1, keepdim=True)
+        p = torch.where(valid, torch.exp(logits - m), 0.0)
+        l = p.sum(dim=-1, keepdim=True)
+        out = (p @ vf) / torch.where(l == 0, 1.0, l)
+        outs.append(out.to(q.dtype))
+    return torch.cat(outs, dim=2)
+
+
+# q, k, v, mask, out, B, H, S, KV, D, (sb, sh, ss) for q, k, v, out,
+# scale, causal, stream
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def _strides(t: torch.Tensor):
+    return [t.stride(i) for i in range(3)]
+
+
+def flash_attention(q, k, v, mask, causal: bool = True) -> torch.Tensor:
+    """Flash attention over (B, H, S, D) q and (B, H, KV, D) k/v with a
+    (B, KV) validity mask.  Tensors may be strided views (the D axis
+    contiguous), e.g. (B, S, H, D) buffers transposed; the output is a
+    (B, H, S, D) view of a (B, S, H, D) buffer."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, mask, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    b, h, s, d = q.shape
+    kv = k.shape[2]
+    if d not in (64, 128):
+        raise ValueError(f"flash_attention kernel takes head_dim 64 or 128, got {d}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16 or t.device != q.device:
+            raise ValueError(f"flash_attention: {name} must be bf16 on {q.device}")
+        if t.stride(3) != 1 or any(t.stride(i) % 8 for i in range(3)) or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} needs a contiguous D axis, "
+                             "strides that are multiples of 8 and 16-byte alignment")
+    if k.shape != (b, h, kv, d) or v.shape != k.shape or mask.shape != (b, kv):
+        raise ValueError("flash_attention: shape mismatch")
+    mask_i32 = mask.to(device=q.device, dtype=torch.int32).contiguous()
+    out = torch.empty((b, s, h, d), dtype=torch.bfloat16, device=q.device).transpose(1, 2)
+    fn = build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_i32.data_ptr(), out.data_ptr(),
+        b, h, s, kv, d, *_strides(q), *_strides(k), *_strides(v), *_strides(out),
+        1.0 / math.sqrt(d), int(causal), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def decode_attention(q, k, v, mask, k_scale, v_scale) -> torch.Tensor:
+    """One-position attention over the int8 KV cache (no causal mask).
+
+    q (B, S, H, D); k/v int8 (B, KV, H, D); mask (B, KV) {0,1}; scales
+    (B, H, KV) f32.  K's scale folds into the f32 logits and V's into the
+    probabilities before the p·v product, whose operands are the model
+    dtype with f32 accumulation.  Returns (B, S, H, D) in q's dtype."""
+    d = q.shape[-1]
+    dtype = q.dtype
+    logits = torch.einsum("bshd,bkhd->bhsk", q.float(), k.float()) * (1.0 / math.sqrt(d))
+    logits = logits * k_scale[:, :, None, :]
+    valid = mask[:, None, None, :].bool()
+    m = torch.where(valid, logits, NEG_INF).amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(logits - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    p = p * v_scale[:, :, None, :]
+    out = torch.einsum("bhsk,bkhd->bhsd", p.to(dtype).float(), v.to(dtype).float())
+    out = (out / torch.where(l == 0, 1.0, l)).to(dtype)
+    return out.transpose(1, 2)
