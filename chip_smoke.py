@@ -10,7 +10,13 @@ Phases, each printing one JSON line with its seconds:
    sm_90a, in parallel;
 3. kernels: each kernel's wrapper at the main path's shapes, held against
    its plain PyTorch version on the same inputs, and timed beside its
-   bound and one PyTorch library call computing the same function;
+   bound and one PyTorch library call computing the same function (the
+   GEMV and its yardsticks by CUDA-graph replay, i.e. device time).  Flash
+   also runs three smaller cases (head_dim 64, causal off, ragged S and KV)
+   with exact zeros for fully masked rows; the GEMV must give the same bits
+   under every launch setting, at B = 1, 8 and 32 and at two small odd
+   shapes too, and the bits of its documented reduction order
+   (``decode_gemv_in_order``);
 4. small reference: a narrow slice model (head_dim 128) generates on the
    card and on the CPU (plain versions) from the same weights; the
    prefill logits must agree;
@@ -31,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -50,6 +57,9 @@ PEAK_F32_FLOPS = 67e12           # CUDA-core f32 FMA rate (the GEMV's arithmetic
 FLASH_ULPS = 2
 FLASH_ROW_REL = 2.0 ** -6
 SMALL_LOGIT_ATOL = 3e-2                  # bf16 model, card vs CPU rounding
+# GEMV vs plain: 1 bf16 ulp + GEMV_SUM_ERR * sqrt(K) * 2^-24 * sum|x w| (the
+# size of an f32 summation error; see gemv_identity)
+GEMV_SUM_ERR = 4.0
 
 
 def emit(obj) -> None:
@@ -69,6 +79,33 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device milliseconds per call: ``calls`` calls captured in one CUDA
+    graph, replayed ``replays`` times between CUDA events.  For kernels
+    shorter than the wrapper's host cost this is the time the decode loop
+    sees, where the host runs ahead of the device; a host-timed loop would
+    measure the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float):
@@ -102,6 +139,42 @@ def flash_excess(out: torch.Tensor, ref: torch.Tensor) -> float:
     return float(((out.float() - r).abs() / limit).max())
 
 
+def flash_case(dev, b, h, s, kv, d, causal, gen, zero_rows):
+    """Untimed: one smaller case against the plain version under the same
+    per-element limit; ``zero_rows`` (b, query) must come out exactly 0."""
+    from mraudio_tpu_torch.ops.attention import flash_attention, flash_attention_plain
+
+    q = torch.randn((b, s, h, d), generator=gen, device=dev).to(torch.bfloat16).transpose(1, 2)
+    k = torch.randn((b, kv, h, d), generator=gen, device=dev).to(torch.bfloat16).transpose(1, 2)
+    v = torch.randn((b, kv, h, d), generator=gen, device=dev).to(torch.bfloat16).transpose(1, 2)
+    mask = torch.ones((b, kv), dtype=torch.int32, device=dev)
+    mask[:, s:] = 0
+    mask[0, 0] = 0
+    mask[b - 1, 60:75] = 0
+    if not causal:
+        mask[b - 1] = 0             # a batch row with nothing to attend
+    out = flash_attention(q, k, v, mask, causal=causal)
+    ref = flash_attention_plain(q, k, v, mask, causal=causal)
+    torch.cuda.synchronize()
+    excess = flash_excess(out, ref)
+    what = f"flash_attention d={d} s={s} kv={kv} causal={causal}"
+    if not excess <= 1.0:
+        raise AssertionError(f"{what}: {excess} x its limit")
+    for bi, qi in zero_rows:
+        if not bool((out[bi, :, qi] == 0).all()):
+            raise AssertionError(f"{what}: fully masked row ({bi}, {qi}) is not exactly 0")
+    return dict(shape=dict(b=b, h=h, s=s, kv=kv, d=d, causal=causal), err_over_limit=excess,
+                max_abs_err=float((out.float() - ref.float()).abs().max()))
+
+
+def check_flash_cases(dev, gen) -> list:
+    """D = 64; the causal flag off; S and KV that are not multiples of the
+    kernel's 128-row tiles, with KV > S."""
+    return [flash_case(dev, 2, 4, 384, 384, 64, True, gen, [(0, 0)]),
+            flash_case(dev, 2, 4, 300, 300, 128, False, gen, [(1, q) for q in range(300)]),
+            flash_case(dev, 2, 4, 777, 1000, 128, True, gen, [(0, 0)])]
+
+
 def check_flash(dev, b, h, s, kv, d, gen):
     from mraudio_tpu_torch.ops.attention import flash_attention, flash_attention_plain
 
@@ -130,7 +203,7 @@ def check_flash(dev, b, h, s, kv, d, gen):
     # or skipped one kv tile, must fail the same check
     controls = {}
     for name, cols, value in (("interior_padding_ignored", (1, slice(1000, 1040)), 1),
-                              ("kv_tile_skipped", (2, slice(3008, 3072)), 0)):
+                              ("kv_tile_skipped", (2, slice(2944, 3072)), 0)):
         bad_mask = mask.clone()
         bad_mask[cols] = value
         controls[name] = flash_excess(flash_attention(q, k, v, bad_mask, causal=True), ref)
@@ -159,34 +232,67 @@ def check_flash(dev, b, h, s, kv, d, gen):
                 shape=dict(b=b, h=h, s=s, kv=kv, d=d), flops=flops, bytes=nbytes)
 
 
-def check_gemv(dev, b, kdim, n, int8, gen, cold_bytes=160e6):
-    from mraudio_tpu_torch.ops.gemv import decode_gemv, decode_gemv_plain
-
-    x = torch.randn((b, kdim), generator=gen, device=dev).to(torch.bfloat16)
-    wbytes = kdim * n * (1 if int8 else 2)
-    copies = max(1, int(np.ceil(cold_bytes / wbytes)))   # rotate past the 50 MB L2
+def _gemv_inputs(b, kdim, n, int8, gen, copies=1):
+    x = torch.randn((b, kdim), generator=gen, device="cuda").to(torch.bfloat16)
     if int8:
-        ws = [torch.randint(-127, 128, (kdim, n), generator=gen, device=dev, dtype=torch.int8)
+        ws = [torch.randint(-127, 128, (kdim, n), generator=gen, device="cuda", dtype=torch.int8)
               for _ in range(copies)]
-        scale = torch.rand((n,), generator=gen, device=dev) * (0.02 / 73.6) + 1e-4
+        scale = torch.rand((n,), generator=gen, device="cuda") * (0.02 / 73.6) + 1e-4
     else:
-        ws = [(torch.randn((kdim, n), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+        ws = [(torch.randn((kdim, n), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
               for _ in range(copies)]
         scale = None
-    w = ws[0]
+    return x, ws, scale
+
+
+def gemv_identity(x, w, scale, what: str) -> float:
+    """The kernel under every launch setting its wrapper takes, and twice
+    under the default, must give the same bits, and the bits of its
+    documented reduction order written out in PyTorch; the result must lie
+    within 1 bf16 ulp of the plain version plus the f32 summation error.
+    Returns the error against plain: max |err|, the largest |err| / limit
+    and the count of outputs more than 1 ulp away."""
+    from mraudio_tpu_torch.ops.gemv import (all_launch_settings, decode_gemv,
+                                            decode_gemv_in_order, decode_gemv_plain)
+
     y = decode_gemv(x, w, scale)
     y2 = decode_gemv(x, w, scale)
-    y3 = decode_gemv(x, w, scale, block_n=64, block_k=64)
     ref = decode_gemv_plain(x, w, scale)
     torch.cuda.synchronize()
     if not torch.equal(y, y2):
-        raise AssertionError(f"decode_gemv {kdim}x{n}: two launches differ")
-    if not torch.equal(y, y3):
-        raise AssertionError(f"decode_gemv {kdim}x{n}: tile widths 32/128 vs 64/64 differ")
+        raise AssertionError(f"decode_gemv {what}: two launches differ")
+    if not torch.equal(y, decode_gemv_in_order(x, w, scale)):
+        raise AssertionError(f"decode_gemv {what}: not the documented reduction order")
+    for cluster, rows in all_launch_settings():
+        yi = decode_gemv(x, w, scale, cluster=cluster, rows=rows)
+        if not torch.equal(y, yi):
+            raise AssertionError(f"decode_gemv {what}: cluster={cluster} rows={rows} "
+                                 "differs from the default launch")
     err = (y.float() - ref.float()).abs()
-    if not bool((err <= _bf16_ulp(ref)).all()):
-        raise AssertionError(f"decode_gemv {kdim}x{n}: more than 1 bf16 ulp from plain")
-    max_err = float(err.max())
+    # Two f32 sums of the same exact products, taken in different orders,
+    # differ by about sqrt(K) * 2^-24 * sum|x w|.  Where an output nearly
+    # cancels, that is more than 1 bf16 ulp of it, whatever the order (on
+    # random data about 1 output in 10^5, for a single ascending chain as
+    # for the segment order), so the limit is 1 ulp plus that much.
+    mag = x.float().abs() @ w.float().abs()
+    if scale is not None:
+        mag = mag * scale.float()
+    limit = _bf16_ulp(ref) + GEMV_SUM_ERR * math.sqrt(x.shape[1]) * 2.0 ** -24 * mag
+    if not bool((err <= limit).all()):
+        raise AssertionError(f"decode_gemv {what}: {float((err / limit).max())} x its limit "
+                             "from plain")
+    return dict(max_abs_err=float(err.max()), err_over_limit=float((err / limit).max()),
+                over_one_ulp=int((err > _bf16_ulp(ref)).sum()))
+
+
+def check_gemv(dev, b, kdim, n, int8, gen, cold_bytes=160e6):
+    from mraudio_tpu_torch.ops.gemv import (CLUSTERS, all_launch_settings, decode_gemv,
+                                            decode_gemv_plain, launch_settings, reduction_order)
+
+    wbytes = kdim * n * (1 if int8 else 2)
+    copies = max(1, int(np.ceil(cold_bytes / wbytes)))   # rotate past the 50 MB L2
+    x, ws, scale = _gemv_inputs(b, kdim, n, int8, gen, copies)
+    vs_plain = gemv_identity(x, ws[0], scale, f"{kdim}x{n}")
 
     it = [0]
 
@@ -196,8 +302,11 @@ def check_gemv(dev, b, kdim, n, int8, gen, cold_bytes=160e6):
             return fn(ws[it[0]])
         return call
 
-    ms = cuda_ms(run(lambda wi: decode_gemv(x, wi, scale)), iters=50)
-    plain_ms = cuda_ms(run(lambda wi: decode_gemv_plain(x, wi, scale)), iters=10)
+    ms = graph_ms(run(lambda wi: decode_gemv(x, wi, scale)))
+    cluster0, rows0 = launch_settings(b, kdim, n, int8)
+    cluster_ms = {c: graph_ms(run(lambda wi, c=c: decode_gemv(x, wi, scale, cluster=c, rows=rows0)))
+                  for c in CLUSTERS}
+    plain_ms = graph_ms(run(lambda wi: decode_gemv_plain(x, wi, scale)), calls=5)
     if int8:   # the library call reads pre-dequantized bf16 weights: 2x the bytes
         deq = [(wi.float() * scale).to(torch.bfloat16) for wi in ws[:max(1, copies // 2)]]
     else:
@@ -208,14 +317,31 @@ def check_gemv(dev, b, kdim, n, int8, gen, cold_bytes=160e6):
         lib_it[0] = (lib_it[0] + 1) % len(deq)
         return torch.mm(x, deq[lib_it[0]])
 
-    library_ms = cuda_ms(lib, iters=50)
+    library_ms = graph_ms(lib)
     nbytes = wbytes + 2.0 * b * kdim + 2.0 * b * n + (4.0 * n if int8 else 0.0)
     flops = 2.0 * b * kdim * n
     bms, by = bound_ms(nbytes, flops, PEAK_F32_FLOPS)
     return dict(name=f"decode_gemv {'int8' if int8 else 'bf16'} {kdim}x{n}", b=b,
-                max_abs_err=max_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                **vs_plain, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 library_note="torch.mm on pre-dequantized bf16 weights" if int8 else "torch.mm",
-                bound_ms=bms, bound_by=by, bytes=nbytes)
+                bound_ms=bms, bound_by=by, bytes=nbytes, order=reduction_order(kdim),
+                launch=(cluster0, rows0), ms_by_cluster=cluster_ms,
+                settings_equal=len(all_launch_settings()))
+
+
+def check_gemv_other(gen) -> dict:
+    """Untimed: the same checks at other row counts (a speculative verify
+    pass sends B x W rows) and at small shapes off the main path: an int8
+    N that is not a multiple of 16 (the wrapper pads the rows), ragged
+    column strips, a K of 11 segments and a K of one short segment."""
+    out = {}
+    for b, kdim, n, int8 in ((1, 4096, 4096, True), (8, 4096, 4096, True),
+                             (32, 4096, 4096, True), (5, 1408, 264, True),
+                             (2, 200, 200, False)):
+        x, ws, scale = _gemv_inputs(b, kdim, n, int8, gen)
+        what = f"B={b} {kdim}x{n} {'int8' if int8 else 'bf16'}"
+        out[what] = gemv_identity(x, ws[0], scale, what)
+    return out
 
 
 def check_decode_attention(dev, b, h, kv, d, gen):
@@ -446,20 +572,25 @@ def main() -> int:
     t = time.perf_counter()
     flash = check_flash(dev, 3, 32, 5353, 5417, 128, gen)
     emit({"phase": "kernel", **flash})
+    flash_cases = check_flash_cases(dev, gen)
+    emit({"phase": "kernel", "name": "flash_attention, smaller cases", "cases": flash_cases})
     gemvs = []
     for kdim, n, int8 in ((4096, 4096, True), (4096, 11008, True), (11008, 4096, True),
                           (4096, 4096, False)):
         r = check_gemv(dev, 3, kdim, n, int8, gen)
         emit({"phase": "kernel", **r})
         gemvs.append(r)
+    gemv_other = check_gemv_other(gen)
+    emit({"phase": "kernel", "name": "decode_gemv, other row counts and shapes",
+          "vs_plain": gemv_other})
     dattn = check_decode_attention(dev, 3, 32, 5417, 128, gen)
     emit({"phase": "plain_op", **dattn})
     # one decoder layer's GEMVs: q, k, v, o (4096²), gate, up, down
     per_layer = [gemvs[0]] * 4 + [gemvs[1]] * 2 + [gemvs[2]]
     gemv_layer = {key: sum(r[key] for r in per_layer)
                   for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    results["kernels"] = dict(flash=flash, gemv=gemvs, decode_attention=dattn,
-                              gemv_layer=gemv_layer)
+    results["kernels"] = dict(flash=flash, flash_cases=flash_cases, gemv=gemvs,
+                              gemv_other=gemv_other, decode_attention=dattn, gemv_layer=gemv_layer)
     emit({"phase": "kernels", "seconds": time.perf_counter() - t})
 
     t = time.perf_counter()

@@ -4,9 +4,10 @@ its plain version, and the plain int8-KV decode attention.
 ``flash_attention`` replaces the TPU kernel
 ``mraudio_tpu/ops/attention.py::flash_attention`` (``_flash_kernel``).
 On CUDA tensors it launches ``csrc/flash_attention.cu`` (bound by
-tensor-core operations at the prefill shape; mma.sync bf16 tiles with an
-f32 online softmax, see the source); on CPU tensors it runs
-:func:`flash_attention_plain`, which computes the same function.
+tensor-core operations at the prefill shape; TMA-fed K/V ring, both
+products on wgmma, f32 online softmax in registers, see the source); on
+CPU tensors it runs :func:`flash_attention_plain`, which computes the
+same function.
 
 ``decode_attention`` is the one-token step over the int8 KV cache.  The
 JAX package runs it through XLA (``chunked_attention`` with the decode
@@ -52,10 +53,11 @@ def flash_attention_plain(q, k, v, mask, causal: bool = True,
     return torch.cat(outs, dim=2)
 
 
-# q, k, v, mask, out, B, H, S, KV, D, (sb, sh, ss) for q, k, v, out,
-# scale, causal, stream
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
+# q, k, v, mask, out, B, H, S, KV, KV padded, D, (sb, sh, ss) for q, k, v,
+# out, scale, causal, stream
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_KV_TILE = 128          # keys per kernel tile; the byte mask is padded to a multiple of it
 
 
 def _strides(t: torch.Tensor):
@@ -83,12 +85,15 @@ def flash_attention(q, k, v, mask, causal: bool = True) -> torch.Tensor:
                              "strides that are multiples of 8 and 16-byte alignment")
     if k.shape != (b, h, kv, d) or v.shape != k.shape or mask.shape != (b, kv):
         raise ValueError("flash_attention: shape mismatch")
-    mask_i32 = mask.to(device=q.device, dtype=torch.int32).contiguous()
+    # one byte per key, zero past KV up to a whole number of key tiles
+    kvp = -(-kv // _KV_TILE) * _KV_TILE
+    mask_u8 = torch.zeros((b, kvp), dtype=torch.uint8, device=q.device)
+    mask_u8[:, :kv] = mask.to(q.device) != 0
     out = torch.empty((b, s, h, d), dtype=torch.bfloat16, device=q.device).transpose(1, 2)
     fn = build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_i32.data_ptr(), out.data_ptr(),
-        b, h, s, kv, d, *_strides(q), *_strides(k), *_strides(v), *_strides(out),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_u8.data_ptr(), out.data_ptr(),
+        b, h, s, kv, kvp, d, *_strides(q), *_strides(k), *_strides(v), *_strides(out),
         1.0 / math.sqrt(d), int(causal), torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, "flash_attention")

@@ -2,10 +2,12 @@
 ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
-its own into ``build/kernels/lib<name>-<hash>.so`` (the hash is of the
-source, so an edited source is rebuilt).  Nothing is compiled at import
-time: :func:`load` builds on first use, and :func:`build_all` starts one
-``nvcc`` per source, all at once.
+its own into ``build/kernels/lib<name>-<hash>.so`` (the hash covers the
+source and the shared ``csrc/*.cuh`` headers, so an edited source is
+rebuilt).  The kernels need no library beyond the CUDA runtime: the
+tensor-map encoder is looked up in libcuda at run time.  Nothing is
+compiled at import time: :func:`load` builds on first use, and
+:func:`build_all` starts one ``nvcc`` per source, all at once.
 """
 
 from __future__ import annotations
@@ -43,9 +45,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _start(name: str):
