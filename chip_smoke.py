@@ -16,16 +16,32 @@ Phases, each printing one JSON line with its seconds:
    with exact zeros for fully masked rows; the GEMV must give the same bits
    under every launch setting, at B = 1, 8 and 32 and at two small odd
    shapes too, and the bits of its documented reduction order
-   (``decode_gemv_in_order``);
+   (``decode_gemv_in_order``).  Plain ops (no kernel: XLA in the
+   reference) timed at their shapes: the int8 decode attention, and
+   ``chunked_attention`` one-shot and as three prefill segments, whose
+   output must be bit-identical, held against flash, and the default
+   configuration's int8 decode projections (``decode_gemv="xla"``);
 4. small reference: a narrow slice model (head_dim 128) generates on the
    card and on the CPU (plain versions) from the same weights; the
-   prefill logits must agree;
+   prefill logits must agree, one-shot and in three 512-token prefill
+   segments of a 32-frame batch;
 5. full-width generate: X-InstructBLIP (EVA-ViT-g, BEATs, two Q-Formers,
    int8 Vicuna-7B with int8 KV cache) on 3 synthetic QVHighlights clips
    (60 frames of 224² RGB, 152 s of 16 kHz audio), random weights from a
-   seed; launch counts are read around this run and asserted;
+   seed, in the slice configuration (both kernels, one-shot prefill);
+   launch counts are read around this run and asserted;
 6. profile: one more generate under ``torch.profiler``: each phase's
-   (encode, prefill, decode) device time per kernel and idle share.
+   (encode, prefill, decode) device time per kernel and idle share;
+7. segmented prefill: the same model and batch with ``prefill_chunk=2048``
+   (3 segments: flash on the first, ``chunked_attention`` on the others);
+   launch counts asserted, logits compared with the one-shot run; then
+   ``attention_impl="chunked"`` one-shot and segmented (0 flash launches),
+   which part flash-vs-chunked from the projections' row count;
+8. evaluate: the model freed, the evaluate CLI in-process at full width
+   in the deployed default configuration (chunked attention, XLA-route
+   projections, no kernel: 0 launches asserted) on 5 synthetic QVH clips
+   at batch 3, its JSONL checked and scored with the port's scorer; then
+   its first batch once more under ``--profile-dir``, broken down as in 6.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 the per-kernel summary ``{"kernels": [...]}``, and
@@ -36,6 +52,8 @@ exits non-zero and prints no ``ok`` line.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -361,6 +379,113 @@ def check_decode_attention(dev, b, h, kv, d, gen):
                 bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes")
 
 
+def check_xla_projections(dev, b, gen, cold_bytes=160e6) -> dict:
+    """The default configuration's decode projections (``decode_gemv="xla"``:
+    ``LlamaLinear`` converts the int8 weight to bf16 on every call, then one
+    ``torch.mm`` with f32 output) at the decode shape, one decoder layer's
+    seven int8 projections, device time by CUDA-graph replay with weights
+    rotated past the L2 as in :func:`check_gemv`.  No kernel: the reference
+    runs this route in XLA."""
+    from mraudio_tpu_torch.config import full_model_config
+    from mraudio_tpu_torch.models.llama import LlamaLinear
+
+    cfg = full_model_config().llm
+    per_shape = {}
+    for kdim, n in ((4096, 4096), (4096, 11008), (11008, 4096)):
+        copies = max(1, int(np.ceil(cold_bytes / (kdim * n))))
+        x, ws, scale = _gemv_inputs(b, kdim, n, True, gen, copies)
+        with torch.device(dev):
+            lins = [LlamaLinear(kdim, n, cfg) for _ in range(copies)]
+        for lin, w in zip(lins, ws):
+            lin.w_int8.data, lin.scale.data = w, scale
+        it = [0]
+
+        def call(lins=lins, x=x, it=it):
+            it[0] = (it[0] + 1) % len(lins)
+            return lins[it[0]](x)
+
+        per_shape[f"{kdim}x{n}"] = graph_ms(call)
+    layer_ms = (4 * per_shape["4096x4096"] + 2 * per_shape["4096x11008"]
+                + per_shape["11008x4096"])
+    return dict(name="decode projections, XLA route (plain, int8 weights)", b=b,
+                ms_by_shape=per_shape, layer_ms=layer_ms,
+                per="one decoder layer: q,k,v,o,gate,up,down int8 at B=3")
+
+
+def check_chunked_attention(dev, b, h, s, kv, d, chunk, gen):
+    """Plain ``chunked_attention`` (no kernel: the reference runs it in
+    XLA) at the prefill shape over an int8 cache in its stored layout:
+    once one-shot and once as segments of ``chunk`` queries, each with its
+    ``q_offset`` and the columns written so far, which must give the same
+    bits; then held against the flash kernel on the dequantized cache
+    under the flash rule.  The scales are rounded to powers of two, so
+    the bf16 cache that flash reads is the exact dequantization and both
+    compute the same function (with scales as ``quantize_kv`` gives them,
+    the flash route's bf16 rounding of the cache alone moves outputs by
+    more than the rule).  Each call is timed beside flash."""
+    from mraudio_tpu_torch.models.llama import quantize_kv
+    from mraudio_tpu_torch.ops.attention import chunked_attention, flash_attention
+
+    q = torch.randn((b, s, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    kq, ks = quantize_kv(torch.randn((b, kv, h, d), generator=gen, device=dev))
+    vq, vs = quantize_kv(torch.randn((b, kv, h, d), generator=gen, device=dev))
+    ks, vs = (torch.exp2(torch.round(torch.log2(t))).transpose(1, 2).contiguous()
+              for t in (ks, vs))                                     # (B, H, KV)
+    mask = torch.ones((b, kv), dtype=torch.int32, device=dev)
+    mask[:, s:] = 0                 # cache columns the prefill has not written
+    mask[0, 0] = 0                  # query row 0 of batch row 0: fully masked
+    mask[1, 1000:1040] = 0          # interior padding (timestamp slots)
+    mask[2, :17] = 0                # left padding
+    kw = dict(causal=True, k_scale=ks, v_scale=vs, scales_bhs=True, kv_bshd=True, q_bshd=True)
+    cols = torch.arange(kv, device=dev)
+    segs = [(o, min(chunk, s - o), mask * (cols < o + min(chunk, s - o)))
+            for o in range(0, s, chunk)]
+
+    def one_shot():
+        return chunked_attention(q, kq, vq, mask, **kw)
+
+    def segment(o, c, written):
+        return chunked_attention(q[:, o:o + c], kq, vq, written, q_offset=o, **kw)
+
+    out = one_shot()
+    seg_out = torch.cat([segment(*sg) for sg in segs], dim=1)
+    torch.cuda.synchronize()
+    if not torch.equal(seg_out, out):
+        raise AssertionError("chunked_attention: segments differ from the one-shot call "
+                             f"(max |d| {float((seg_out.float() - out.float()).abs().max())})")
+    if not bool((out[0, 0] == 0).all()) or not bool(torch.isfinite(out.float()).all()):
+        raise AssertionError("chunked_attention: masked row not exactly 0, or non-finite output")
+    dt = torch.bfloat16
+    kd = kq.to(dt) * ks.transpose(1, 2)[..., None].to(dt)
+    vd = vq.to(dt) * vs.transpose(1, 2)[..., None].to(dt)
+    if not torch.equal(kd.float(), kq.float() * ks.transpose(1, 2)[..., None]):
+        raise AssertionError("chunked_attention check: the bf16 dequantization is not exact")
+
+    def flash():
+        return flash_attention(q.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2), mask,
+                               causal=True)
+
+    ref = flash()
+    torch.cuda.synchronize()
+    excess = flash_excess(out.transpose(1, 2), ref)
+    max_err = float((out.transpose(1, 2).float() - ref.float()).abs().max())
+    if not excess <= 1.0:
+        raise AssertionError(f"chunked_attention vs flash: max |err| {max_err}, "
+                             f"{excess} x the flash rule")
+    ms = cuda_ms(one_shot, iters=2)
+    seg_ms = [cuda_ms(lambda sg=sg: segment(*sg), iters=2) for sg in segs]
+    flash_ms = cuda_ms(flash, iters=10)
+    valid_pairs = sum(int(torch.cumsum(mask[bi].long(), 0)[:s].sum()) for bi in range(b))
+    flops = 4.0 * h * d * valid_pairs
+    nbytes = 2.0 * 2 * b * s * h * d + 2.0 * b * kv * h * d + 2 * 4.0 * b * h * kv + 4.0 * b * kv
+    bms, by = bound_ms(nbytes, flops, PEAK_BF16_TENSOR_FLOPS)
+    return dict(name="chunked_attention (plain, int8 KV, one-shot and segmented)",
+                shape=dict(b=b, h=h, s=s, kv=kv, d=d, chunk=chunk), segments_bit_identical=True,
+                vs_flash_max_abs_err=max_err, vs_flash_err_over_limit=excess, ms=ms,
+                segment_q_offsets=[o for o, _, _ in segs], segment_ms=seg_ms,
+                flash_ms_same_inputs=flash_ms, bound_ms=bms, bound_by=by)
+
+
 # --------------------------------------------------------------------------
 # Phases 4 and 5: models
 # --------------------------------------------------------------------------
@@ -400,14 +525,35 @@ def build_model(cfg, audio_cfg, device, seed):
     return cast_params_for_inference(model)
 
 
-def small_reference(dev):
+@contextlib.contextmanager
+def llm_settings(model, **changes):
+    """``LlamaConfig`` fields changed on the language model and on every
+    layer that holds the config, for the duration."""
+    from mraudio_tpu_torch.config import LlamaConfig
+
+    held = [(m, m.cfg) for m in model.llm.modules()
+            if isinstance(getattr(m, "cfg", None), LlamaConfig)]
+    for m, c in held:
+        m.cfg = c.replace(**changes)
+    try:
+        yield
+    finally:
+        for m, c in held:
+            m.cfg = c
+
+
+def small_reference(dev, chunk: int = 512):
     """The slice at narrow width with head_dim 128 (the kernels' shape
     class): the card's run (kernels) against the CPU's (plain versions),
-    same weights."""
+    same weights.  Then a 32-frame batch (a 1078-token prefix) with
+    ``prefill_chunk=chunk``: three segments, flash on the first and
+    ``chunked_attention`` (int8 scales, ``q_offset``, the written-columns
+    mask) on the others; its prefill logits must agree too."""
     from mraudio_tpu_torch.config import AudioFrontendConfig, slice_model_config, tiny_model_config
     from mraudio_tpu_torch.infer.generate import prefill_cache
     from mraudio_tpu_torch.models.casting import cast_params_for_inference
     from mraudio_tpu_torch.models.xinstructblip import XInstructBLIP
+    from mraudio_tpu_torch.ops.attention import flash_attention
 
     base = tiny_model_config(quantization="int8")
     llm = base.llm.replace(hidden_size=256, num_heads=2, num_kv_heads=2, intermediate_size=512,
@@ -419,6 +565,7 @@ def small_reference(dev):
     gpu.load_state_dict(cpu.state_dict())
     cast_params_for_inference(gpu)
     batch = qvh_batch(3, 4, 28, 3.0, 16000, seed=2)
+    long_batch = qvh_batch(3, 32, 28, 3.0, 16000, seed=3)
 
     results = {}
     for name, model in (("cpu", cpu), ("cuda", gpu)):
@@ -432,26 +579,38 @@ def small_reference(dev):
             hidden, _ = prefill_cache(model.llm, embeds, pos, full, s + 8)
             logits = model.llm.logits(hidden[:, -1]).cpu()
         texts = model.generate(batch=batch)
-        results[name] = (logits, texts)
+        stats = {}
+        flash_attention.launches = 0
+        with llm_settings(model, prefill_chunk=chunk):
+            seg_texts = model.generate(batch=long_batch, stats=stats)
+        results[name] = (logits, texts, stats["prefill_logits"].cpu(), seg_texts,
+                         stats["prefill_segments"], flash_attention.launches, stats["prefix_len"])
     v = cfg.llm.vocab_size
     err = float((results["cuda"][0][:, :v] - results["cpu"][0][:, :v]).abs().max())
     if not err <= SMALL_LOGIT_ATOL:
         raise AssertionError(f"small model: card vs CPU prefill logits differ by {err}")
+    seg_err = float((results["cuda"][2][:, :v] - results["cpu"][2][:, :v]).abs().max())
+    segments, launches, prefix = results["cuda"][4:7]
+    if segments != 3 or results["cpu"][4] != 3 or launches != cfg.llm.num_layers:
+        raise AssertionError(f"small model, segmented: {segments} segments of {prefix} tokens, "
+                             f"{launches} flash launches")
+    if not seg_err <= SMALL_LOGIT_ATOL:
+        raise AssertionError(f"small model, segmented: card vs CPU prefill logits differ by "
+                             f"{seg_err}")
     same = results["cuda"][1] == results["cpu"][1]
     return dict(prefill_logit_max_abs_err=err, tol=SMALL_LOGIT_ATOL,
-                texts_equal=same, texts_cuda=results["cuda"][1], texts_cpu=results["cpu"][1])
+                texts_equal=same, texts_cuda=results["cuda"][1], texts_cpu=results["cpu"][1],
+                segmented=dict(prefill_chunk=chunk, prefix_len=prefix, prefill_segments=segments,
+                               flash_launches=launches, prefill_logit_max_abs_err=seg_err,
+                               texts_equal=results["cuda"][3] == results["cpu"][3]))
 
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def profile_generate(model, batch, unprofiled: dict, top: int = 12) -> dict:
-    """One more ``generate`` under ``torch.profiler``.  For each phase span
-    (``encode``, ``prefill``, ``decode``) on the host: the device time of
-    every kernel launched inside it, the union of those intervals (busy),
-    and the idle share ``1 - busy / span``.  The profiler slows the host,
-    so the idle share is also given against the unprofiled run's phase
-    seconds."""
+    """One more ``generate`` under ``torch.profiler``, broken down by
+    :func:`phase_breakdown`."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -459,6 +618,16 @@ def profile_generate(model, batch, unprofiled: dict, top: int = 12) -> dict:
     trace = Path(__file__).resolve().parent / "build" / "profile" / "generate_trace.json"
     trace.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(trace))
+    return phase_breakdown(trace, unprofiled, top)
+
+
+def phase_breakdown(trace: Path, unprofiled: dict, top: int = 12) -> dict:
+    """Read (and delete) a chrome trace of one ``generate``.  For each phase
+    span (``encode``, ``prefill``, ``decode``) on the host: the device time
+    of every kernel launched inside it, the union of those intervals
+    (busy), and the idle share ``1 - busy / span``.  The profiler slows the
+    host, so the idle share is also given against the unprofiled run's
+    phase seconds (``unprofiled[f"{phase}_s"]``)."""
     events = json.loads(trace.read_text())["traceEvents"]
     trace.unlink()
     spans = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
@@ -537,7 +706,137 @@ def full_generate(dev, seed: int = 0):
         wall_s=wall, clips_per_s=3 / wall,
         peak_mem_bytes=torch.cuda.max_memory_allocated(),
         launches=launches, texts=texts, windows=windows,
-    ), model, batch
+    ), model, batch, stats["prefill_logits"]
+
+
+def segmented_prefill(model, batch, one_shot: dict, one_shot_logits, chunk: int = 2048):
+    """The full-width slice model of ``full_generate`` again, with the JAX
+    package's TPU deployment of the prefill: ``prefill_chunk=2048``.
+    Flash runs segment 0 of each layer, ``chunked_attention`` the later
+    segments, and the GEMV every decode projection.  Then the same batch
+    with ``attention_impl="chunked"``, one-shot and segmented, to part the
+    logits' differences: flash vs ``chunked_attention`` at the same GEMM
+    shapes (both one-shot), and the projections' row count M (chunked
+    one-shot vs segmented, whose attention is bit-identical).  Random
+    weights have near-tied logits, so the tokens are compared, not
+    asserted."""
+    from mraudio_tpu_torch.ops.attention import flash_attention
+    from mraudio_tpu_torch.ops.gemv import decode_gemv
+
+    cfg = model.llm.cfg
+    layers, v = cfg.num_layers, cfg.vocab_size
+    runs = {}
+    for name, impl, c in (("pallas_segmented", "pallas", chunk),
+                          ("chunked_one_shot", "chunked", 0),
+                          ("chunked_segmented", "chunked", chunk)):
+        stats = {}
+        flash_attention.launches = 0
+        decode_gemv.launches = 0
+        with llm_settings(model, prefill_chunk=c, attention_impl=impl):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            texts = model.generate(batch=batch, stats=stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        launches = {"flash_attention": flash_attention.launches,
+                    "decode_gemv": decode_gemv.launches}
+        steps = stats["decode_steps"]
+        if stats["prefill_segments"] != (3 if c else 1):
+            raise AssertionError(f"{name}: {stats['prefill_segments']} prefill segments")
+        if launches["flash_attention"] != (layers if impl == "pallas" else 0):
+            raise AssertionError(f"{name}: flash launches {launches}")
+        if launches["decode_gemv"] != 7 * layers * steps:
+            raise AssertionError(f"{name}: GEMV launches {launches} != 224 x {steps}")
+        logits = stats["prefill_logits"][:, :v]
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{name}: non-finite prefill logits")
+        runs[name] = dict(logits=logits, texts=texts, launches=launches, decode_steps=steps,
+                          prefill_s=stats["prefill_s"], decode_s=stats["decode_s"], wall_s=wall)
+    runs["pallas_one_shot"] = dict(logits=one_shot_logits[:, :v], texts=one_shot["texts"])
+
+    def diff(x, y):
+        return float((runs[x]["logits"] - runs[y]["logits"]).abs().max())
+
+    seg = runs["pallas_segmented"]
+    return dict(prefill_chunk=chunk, prefill_segments=3, launches=seg["launches"],
+                decode_steps=seg["decode_steps"], prefill_s=seg["prefill_s"],
+                decode_s=seg["decode_s"], wall_s=seg["wall_s"],
+                logits_max_abs_diff_vs_one_shot=diff("pallas_segmented", "pallas_one_shot"),
+                tokens_equal_one_shot=seg["texts"] == one_shot["texts"], texts=seg["texts"],
+                logits_max_abs_diff=dict(
+                    flash_vs_chunked_one_shot=diff("pallas_one_shot", "chunked_one_shot"),
+                    chunked_segmented_vs_one_shot=diff("chunked_segmented", "chunked_one_shot"),
+                    pallas_vs_chunked_segmented=diff("pallas_segmented", "chunked_segmented")),
+                chunked=({name: dict(prefill_s=runs[name]["prefill_s"],
+                                     decode_s=runs[name]["decode_s"],
+                                     tokens_equal_pallas_one_shot=runs[name]["texts"]
+                                     == one_shot["texts"])
+                          for name in ("chunked_one_shot", "chunked_segmented")}))
+
+
+def evaluate_cli() -> dict:
+    """The evaluate CLI in-process at full width in the deployed default
+    configuration (``--model-size full``: chunked attention, XLA-route
+    projections, ``prefill_chunk=2048``) on 5 synthetic QVH clips at batch
+    3 (two batches, the second with a padding row), then the port's
+    scorer on its JSONL.  The default configuration routes around both
+    kernels: 0 launches of each are asserted."""
+    from mraudio_tpu_torch.cli import evaluate as cli
+    from mraudio_tpu_torch.eval.mr_eval import eval_submission
+    from mraudio_tpu_torch.eval.span_utils import load_jsonl
+    from mraudio_tpu_torch.ops.attention import flash_attention
+    from mraudio_tpu_torch.ops.gemv import decode_gemv
+
+    root = Path(__file__).resolve().parent / "build" / "smoke"
+    root.mkdir(parents=True, exist_ok=True)
+    queries = ["a man in a red jacket talks to the camera on a busy street",
+               "two dogs chase a ball across the beach at sunset",
+               "a woman slices vegetables and adds them to a pan"]
+    anns = [{"vid": f"v{i}", "qid": i, "query": queries[i % 3], "duration": 150,
+             "relevant_windows": [[10.0 + 24 * i, 34.0 + 24 * i]]} for i in range(5)]
+    gt, out = root / "annotations.jsonl", root / "predictions.jsonl"
+    gt.write_text("".join(json.dumps(a) + "\n" for a in anns))
+    out.unlink(missing_ok=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    decode_gemv.launches = 0
+    t = time.perf_counter()
+    result = cli.main(["--annotation-file", str(gt), "--output-file", str(out),
+                       "--model-size", "full", "--video-source", "synthetic",
+                       "--batch-size", "3"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {"flash_attention": flash_attention.launches, "decode_gemv": decode_gemv.launches}
+    if launches != {"flash_attention": 0, "decode_gemv": 0}:
+        raise AssertionError(f"evaluate (default config) launched kernels: {launches}")
+    records = load_jsonl(str(out))
+    if [r["qid"] for r in records] != list(range(5)) or records != result["records"]:
+        raise AssertionError(f"evaluate wrote qids {[r['qid'] for r in records]}")
+    for r in records:
+        wins = r["pred_relevant_windows"]
+        if (set(r) != {"qid", "query", "vid", "pred_relevant_windows", "raw_out"}
+                or not isinstance(r["raw_out"], str) or not wins
+                or not all(isinstance(w, list) and len(w) == 2 for w in wins)):
+            raise AssertionError(f"evaluate: record off the submission schema: {r}")
+    batches = result["batches"]
+    if len(batches) != 2 or any(bt["prefill_segments"] != 3 for bt in batches):
+        raise AssertionError(f"evaluate: batches {batches}")
+    metrics = eval_submission(records, anns, verbose=False)
+    peak = torch.cuda.max_memory_allocated()
+
+    # the first batch once more under --profile-dir: where its time goes
+    gt3 = root / "annotations_batch0.jsonl"
+    gt3.write_text("".join(json.dumps(a) + "\n" for a in anns[:3]))
+    cli.main(["--annotation-file", str(gt3), "--output-file", str(root / "profiled.jsonl"),
+              "--model-size", "full", "--video-source", "synthetic", "--batch-size", "3",
+              "--profile-dir", str(root / "profile")])
+    breakdown = phase_breakdown(root / "profile" / "trace.json", batches[0])
+    return dict(records=len(records), launches=launches, clips_per_sec=result["clips_per_sec"],
+                wall_s_with_model_build=wall, stages=result["stages"], batches=batches,
+                prefix_len=batches[0]["prefix_len"], peak_mem_bytes=peak,
+                brief=dict(metrics["brief"]), raw_out=[r["raw_out"] for r in records],
+                profile_batch0=breakdown)
 
 
 def main() -> int:
@@ -585,12 +884,18 @@ def main() -> int:
           "vs_plain": gemv_other})
     dattn = check_decode_attention(dev, 3, 32, 5417, 128, gen)
     emit({"phase": "plain_op", **dattn})
+    chunked = check_chunked_attention(dev, 3, 32, 5353, 5417, 128, 2048, gen)
+    emit({"phase": "plain_op", **chunked})
+    xla_proj = check_xla_projections(dev, 3, gen)
+    emit({"phase": "plain_op", **xla_proj})
     # one decoder layer's GEMVs: q, k, v, o (4096²), gate, up, down
     per_layer = [gemvs[0]] * 4 + [gemvs[1]] * 2 + [gemvs[2]]
     gemv_layer = {key: sum(r[key] for r in per_layer)
                   for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     results["kernels"] = dict(flash=flash, flash_cases=flash_cases, gemv=gemvs,
-                              gemv_other=gemv_other, decode_attention=dattn, gemv_layer=gemv_layer)
+                              gemv_other=gemv_other, decode_attention=dattn,
+                              chunked_attention=chunked, xla_projections=xla_proj,
+                              gemv_layer=gemv_layer)
     emit({"phase": "kernels", "seconds": time.perf_counter() - t})
 
     t = time.perf_counter()
@@ -598,20 +903,36 @@ def main() -> int:
     emit({"phase": "small_reference", **results["small"], "seconds": time.perf_counter() - t})
 
     t = time.perf_counter()
-    full, model, batch = full_generate(dev)
+    full, model, batch, full_logits = full_generate(dev)
     results["full"] = full
     emit({"phase": "full_generate", **full, "seconds": time.perf_counter() - t})
 
     t = time.perf_counter()
     results["profile"] = profile_generate(model, batch, full)
-    del model
     emit({"phase": "profile", **results["profile"], "seconds": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    results["segmented"] = segmented_prefill(model, batch, full, full_logits)
+    emit({"phase": "segmented_prefill", **results["segmented"],
+          "seconds": time.perf_counter() - t})
+    del model, batch, full_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    results["evaluate"] = evaluate_cli()
+    emit({"phase": "evaluate", **results["evaluate"], "seconds": time.perf_counter() - t})
+    launches_by_path = {name: {"full_generate": full["launches"][name],
+                               "segmented_prefill": results["segmented"]["launches"][name],
+                               "evaluate": results["evaluate"]["launches"][name]}
+                        for name in ("flash_attention", "decode_gemv")}
 
     kernels = [
         dict(name="flash_attention", route="cuda",
              source="mraudio_tpu_torch/csrc/flash_attention.cu",
              replaces="mraudio_tpu/ops/attention.py:471",
              launches=full["launches"]["flash_attention"],
+             launches_by_path=launches_by_path["flash_attention"],
              max_abs_err=flash["max_abs_err"], ms=flash["ms"], plain_ms=flash["plain_ms"],
              bound_ms=flash["bound_ms"], bound_by=flash["bound_by"],
              library_ms=flash["library_ms"]),
@@ -619,6 +940,7 @@ def main() -> int:
              source="mraudio_tpu_torch/csrc/decode_gemv.cu",
              replaces="mraudio_tpu/ops/gemv.py:109",
              launches=full["launches"]["decode_gemv"],
+             launches_by_path=launches_by_path["decode_gemv"],
              max_abs_err=max(r["max_abs_err"] for r in gemvs),
              per="one decoder layer: q,k,v,o,gate,up,down int8 at B=3",
              bound_by="bytes", **gemv_layer),

@@ -1,10 +1,10 @@
 """Typed configuration for the PyTorch port.
 
 The same dataclasses, field names and defaults as the JAX package's
-configuration, restricted to what the X-InstructBLIP generate path
-reads.  PyYAML is imported only inside :meth:`from_yaml`/:meth:`to_yaml`,
-so importing the configuration needs nothing beyond the standard
-library.
+configuration, restricted to what the X-InstructBLIP generate path and
+the evaluate driver read.  PyYAML is imported only inside
+:meth:`from_yaml`/:meth:`to_yaml`, so importing the configuration needs
+nothing beyond the standard library.
 """
 
 from __future__ import annotations
@@ -149,15 +149,16 @@ class LlamaConfig(_ConfigBase):
     # order-preserving GEMV kernel when "pallas" (the name is kept from
     # the JAX package; here it selects ops/gemv.py's CUDA kernel).
     decode_gemv: str = "xla"
-    # Multi-token attention: "pallas" selects the flash-attention kernel
-    # (ops/attention.py) for a one-shot prefill; "chunked" and "dense"
-    # both run the plain materialized path here.
+    # Multi-token attention: "chunked" runs the plain online-softmax
+    # chunked_attention over the cache (ops/attention.py); "pallas"
+    # selects the flash-attention kernel for queries that start at
+    # column 0 (later prefill segments take chunked_attention); "dense"
+    # materializes the logits.
     attention_impl: str = "chunked"
     attention_unroll_prefill: bool = False
     attention_unroll_train: bool = False
     mlp_seq_chunk: int = 0
-    # Segmented prefill (0 = one-shot).  Only the one-shot prefill is
-    # ported; a prefix longer than a nonzero chunk raises.
+    # Segmented prefill: segments of this many prefix tokens (0 = one-shot).
     prefill_chunk: int = 2048
     scan_layers: bool = False
     seq_shard: bool = False
@@ -241,12 +242,119 @@ class AudioFrontendConfig(_ConfigBase):
         return int(self.sampling_rate * self.frame_shift_ms / 1000)
 
 
+@dataclass(frozen=True)
+class DataConfig(_ConfigBase):
+    """Evaluation data: annotation JSONL, frame sampling and the media
+    sources (``data/``)."""
+
+    dataset: str = "QVH"
+    video_folder: str = ""
+    annotation_file: str = ""
+    train_annotation_file: str = ""
+    val_annotation_file: str = ""
+    n_frms: int = 60
+    image_size: int = 224
+    sampling: str = "uniform"      # "uniform" (eval) or "random" (train)
+    min_scale: float = 0.9
+    max_scale: float = 1.0
+    # "native" (libav through native/mraudio_native.cc), "synthetic"
+    # (procedural, keyed on the path), "npy" (pre-extracted arrays)
+    video_source: str = "native"
+    video_wire: str = "rgb"        # only "rgb" is ported
+    audio: AudioFrontendConfig = field(default_factory=AudioFrontendConfig)
+    num_chunks: int = 1
+    chunk_idx: int = 0
+    prefetch_depth: int = 2
+    prompt_style: str = "live"     # "live" or "fewshot" (text/prompts.py)
+
+    @classmethod
+    def for_dataset(cls, dataset: str, **kwargs) -> "DataConfig":
+        if dataset not in DATASET_N_FRMS:
+            raise ValueError(
+                f"unknown dataset {dataset!r}; expected one of {sorted(DATASET_N_FRMS)}"
+            )
+        kwargs.setdefault(
+            "audio",
+            AudioFrontendConfig(max_audio_seconds=DATASET_MAX_AUDIO_SECONDS[dataset]),
+        )
+        return cls(dataset=dataset, n_frms=DATASET_N_FRMS[dataset], **kwargs)
+
+
+@dataclass(frozen=True)
+class MeshConfig(_ConfigBase):
+    """Device mesh axes; the port runs one device (data = model = 1)."""
+
+    data: int = 1
+    model: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.model
+
+
+@dataclass(frozen=True)
+class TrainConfig(_ConfigBase):
+    """Training fields, kept so that a YAML RunConfig of the JAX package
+    loads; training itself is not ported.  ``seed`` seeds the random
+    init of ``run_inference``."""
+
+    lr: float = 3e-4
+    weight_decay: float = 0.05
+    betas: tuple = (0.9, 0.999)
+    warmup_steps: int = 1000
+    warmup_start_lr: float = 1e-8
+    min_lr: float = 0.0
+    accum_grad_iters: int = 2
+    max_epoch: int = 50
+    val_freq: int = 1
+    save_freq: int = 1
+    batch_size: int = 1
+    num_workers: int = 2
+    augment: bool = True
+    seed: int = 42
+    output_dir: str = "output"
+    resume_ckpt_path: str = ""
+    nan_guard: bool = True
+    max_nan_skips: int = 10
+    preempt_save: bool = True
+    split_encode_step: bool = True
+    quant_frozen: str = "none"
+    encoder_window: int = 0
+    upload_overlap: bool = False
+
+
+@dataclass(frozen=True)
+class RunConfig(_ConfigBase):
+    """Top-level config: one object per entry point."""
+
+    model_name: str = "X-InstructBLIP"
+    model: XInstructBLIPConfig = field(default_factory=XInstructBLIPConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    quant_encoders: bool = False   # not ported
+    # paths to converted pretrained weights (empty = random init; loading
+    # them is not ported)
+    llm_weights: str = ""
+    vit_weights: str = ""
+    beats_weights: str = ""
+    video_qformer_weights: str = ""
+    audio_qformer_weights: str = ""
+    blip2_stage1_weights: str = ""
+    tokenizer_path: str = ""
+
+
 _DATACLASS_FIELD_TYPES = {
     ("XInstructBLIPConfig", "vit"): ViTConfig,
     ("XInstructBLIPConfig", "beats"): BeatsConfig,
     ("XInstructBLIPConfig", "qformer"): QFormerConfig,
     ("XInstructBLIPConfig", "llm"): LlamaConfig,
     ("XInstructBLIPConfig", "lora"): LoraConfig,
+    ("DataConfig", "audio"): AudioFrontendConfig,
+    ("RunConfig", "model"): XInstructBLIPConfig,
+    ("RunConfig", "data"): DataConfig,
+    ("RunConfig", "train"): TrainConfig,
+    ("RunConfig", "mesh"): MeshConfig,
 }
 
 
@@ -286,6 +394,16 @@ def full_model_config() -> XInstructBLIPConfig:
     return XInstructBLIPConfig(
         llm=LlamaConfig(quantization="int8", kv_quant="int8",
                         vocab_pad_multiple=8)
+    )
+
+
+def tiny_data_config(n_frms: int = 4) -> DataConfig:
+    return DataConfig(
+        dataset="QVH",
+        n_frms=n_frms,
+        image_size=28,
+        video_source="synthetic",
+        audio=AudioFrontendConfig(num_mel_bins=16, mel_frames_per_chunk=32),
     )
 
 

@@ -1,8 +1,8 @@
 """Batched greedy decoding over a preallocated KV cache.
 
-The prefill writes the whole multimodal prefix into the cache in one
-pass (``cfg.prefill_chunk`` must be 0 or cover the prefix: the segmented
-prefill is not ported), then a Python loop steps the decoder until every
+The prefill writes the whole multimodal prefix into the cache, in
+segments of ``cfg.prefill_chunk`` tokens (one pass when 0 or when the
+prefix fits), then a Python loop steps the decoder until every
 row has emitted EOS or ``max_new_tokens`` is reached — one host check
 per step.  Finished rows keep emitting EOS, so the output buffer's tail
 is EOS-filled.
@@ -23,23 +23,37 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def prefill_cache(model: LlamaModel, prefix_embeds, positions, full_mask, alloc_len: int):
+def prefill_cache(model: LlamaModel, prefix_embeds, positions, full_mask, alloc_len: int,
+                  stats: dict | None = None):
     """Run the prefix through the decoder, writing a fresh KV cache of
-    ``alloc_len`` columns; returns ``(hidden, cache)``."""
+    ``alloc_len`` columns; returns ``(hidden, cache)``, ``hidden`` being
+    the last segment's.
+
+    With ``cfg.prefill_chunk`` the pass runs in segments: segment ``i``
+    writes cache columns ``[o, o + c)`` and attends everything written
+    so far (``cache_index=o``, the attention's static query offset).
+    ``stats``, if given, receives ``prefill_segments``."""
     b, s, _ = prefix_embeds.shape
     chunk = model.cfg.prefill_chunk
-    if chunk and s > chunk:
-        raise NotImplementedError(
-            f"segmented prefill (prefill_chunk={chunk} < prefix {s}) is not ported; "
-            "set prefill_chunk=0")
+    starts = list(range(0, s, chunk)) if chunk and s > chunk else [0]
     dev = prefix_embeds.device
     cache = init_cache(model.cfg, b, alloc_len, dev)
     k_idx = torch.arange(alloc_len, device=dev)
-    q_idx = torch.arange(s, device=dev)
-    attend = (k_idx[None, :] <= q_idx[:, None])[None, None] & full_mask[:, None, None, :].bool()
-    written = full_mask * (k_idx < s).to(full_mask.dtype)[None, :]
-    return model(prefix_embeds, attend, positions, cache=cache, cache_index=0,
-                 kv_valid=written, causal=True, return_hidden=True)
+    pad = full_mask[:, None, None, :].bool()
+    hidden = None
+    for o in starts:
+        c = min(chunk, s - o) if len(starts) > 1 else s
+        q_idx = torch.arange(o, o + c, device=dev)
+        # absolute causal + padding; columns past this segment are
+        # unwritten and masked out of kv_valid too
+        attend = (k_idx[None, :] <= q_idx[:, None])[None, None] & pad
+        written = full_mask * (k_idx < o + c).to(full_mask.dtype)[None, :]
+        hidden, cache = model(prefix_embeds[:, o:o + c], attend, positions[:, o:o + c],
+                              cache=cache, cache_index=o, kv_valid=written, causal=True,
+                              return_hidden=True)
+    if stats is not None:
+        stats["prefill_segments"] = len(starts)
+    return hidden, cache
 
 
 @torch.inference_mode()
@@ -48,7 +62,8 @@ def greedy_generate(model: LlamaModel, prefix_embeds, prefix_mask,
     """Generated ids (B, max_new_tokens), EOS-filled after each row ends.
 
     ``stats``, if given, receives ``prefill_s``, ``decode_s`` (wall
-    seconds, the device synchronised at each boundary), ``decode_steps``
+    seconds, the device synchronised at each boundary),
+    ``prefill_segments``, ``decode_steps``
     (decoder calls after the prefill) and ``prefill_logits`` (the f32
     last-position logits that seed the decode).  The two phases run
     inside profiler spans named ``prefill`` and ``decode``."""
@@ -63,7 +78,8 @@ def greedy_generate(model: LlamaModel, prefix_embeds, prefix_mask,
         full_mask = torch.zeros((b, alloc_len), dtype=torch.int32, device=dev)
         full_mask[:, :s] = prefix_mask
 
-        hidden, cache = prefill_cache(model, prefix_embeds, positions, full_mask, alloc_len)
+        hidden, cache = prefill_cache(model, prefix_embeds, positions, full_mask, alloc_len,
+                                      stats=stats)
         last_logits = model.logits(hidden[:, -1:])
         cur_id = last_logits[:, -1].argmax(dim=-1).to(torch.int32)
         if stats is not None:

@@ -8,9 +8,13 @@ The main-path subset of the JAX package's decoder:
   kernel when ``cfg.decode_gemv == "pallas"``;
 * an int8 KV cache (per-(row, position, head) absmax, scales stored
   (B, kv_heads, KV)), written in place — the port owns its cache buffers;
-* a one-shot prefill through the flash-attention kernel
-  (``cfg.attention_impl == "pallas"``) over the dequantized cache, and
-  one-token decode steps through the plain int8 decode attention;
+* multi-token causal calls through the plain ``chunked_attention`` over
+  the cache as stored (``cfg.attention_impl == "chunked"``, the default),
+  or through the flash-attention kernel over the dequantized cache
+  (``"pallas"``) when the queries start at column 0, i.e. a one-shot
+  prefill or a segmented prefill's first segment; later segments take
+  ``chunked_attention`` as in the reference; one-token decode steps go
+  through the plain int8 decode attention;
 * f32 logits with padded vocab columns at ``finfo(f32).min``.
 """
 
@@ -26,7 +30,7 @@ from torch import nn
 from mraudio_tpu_torch.config import LlamaConfig, LoraConfig
 from mraudio_tpu_torch.device import torch_dtype
 from mraudio_tpu_torch.models.layers import NEG_INF, Embed, RMSNorm, _empty
-from mraudio_tpu_torch.ops.attention import decode_attention, flash_attention
+from mraudio_tpu_torch.ops.attention import chunked_attention, decode_attention, flash_attention
 from mraudio_tpu_torch.ops.gemv import decode_gemv, supports
 
 
@@ -190,11 +194,14 @@ class LlamaAttention(nn.Module):
         if streaming and s == 1:
             # one-token step over the int8 cache (the reference's XLA route)
             out = decode_attention(q, k_full, v_full, kv_valid, k_scale, v_scale)
+        elif streaming and (cfg.attention_impl == "chunked" or q_offset):
+            # the reference's XLA route; the flash kernel takes only
+            # queries that start at column 0, so later prefill segments
+            # come here too
+            scales = dict(k_scale=k_scale, v_scale=v_scale, scales_bhs=True) if quantized else {}
+            out = chunked_attention(q, k_full, v_full, kv_valid, causal=True, kv_bshd=True,
+                                    q_bshd=True, q_offset=q_offset, **scales)
         elif streaming:
-            if cfg.attention_impl != "pallas" or q_offset:
-                raise NotImplementedError(
-                    "only the one-shot flash prefill is ported: set "
-                    "attention_impl='pallas' and prefill_chunk=0")
             if quantized:
                 # the flash kernel takes bf16 K/V: dequantize the cache once
                 k_full = k_full.to(dt) * k_scale.transpose(1, 2)[..., None].to(dt)

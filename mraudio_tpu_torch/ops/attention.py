@@ -12,6 +12,11 @@ same function.
 ``decode_attention`` is the one-token step over the int8 KV cache.  The
 JAX package runs it through XLA (``chunked_attention`` with the decode
 route's flags), so it stays plain PyTorch here.
+
+``chunked_attention`` is the reference's XLA online-softmax attention
+(``mraudio_tpu/ops/attention.py::chunked_attention``), plain PyTorch
+here too: the multi-token route of the default configuration
+(``attention_impl="chunked"``) and every prefill segment after the first.
 """
 
 from __future__ import annotations
@@ -102,6 +107,117 @@ def flash_attention(q, k, v, mask, causal: bool = True) -> torch.Tensor:
 
 
 flash_attention.launches = 0
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(N, M, K) @ (N, K, P) with f32 accumulation and an f32 result.
+    On CUDA, half-precision operands stay as they are (``torch.bmm`` with
+    ``out_dtype``); elsewhere the same products are taken in f32, which
+    holds the exact product of two bf16 values."""
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def chunked_attention(q, k, v, mask, causal: bool = True, block_k: int = 512,
+                      block_q: int = 512, k_scale=None, v_scale=None, kv_bshd: bool = False,
+                      q_bshd: bool = False, q_offset: int = 0,
+                      scales_bhs: bool = False) -> torch.Tensor:
+    """Online-softmax attention over ``block_q`` query tiles and
+    ``block_k`` key chunks, with the reference's contract:
+
+    * q (B, H, S, D), or (B, S, H, D) with ``q_bshd`` (the output follows
+      q's layout); k/v (B, H, KV, D), or the cache's (B, KV, H, D) with
+      ``kv_bshd``; mask (B, KV) {0,1};
+    * int8 K/V with ``k_scale``/``v_scale``: each tile is converted to q's
+      dtype, K's scale multiplies the f32 logits and V's the probabilities
+      before their cast for p·v.  Scales follow k's layout, or are
+      (B, H, KV) with ``scales_bhs``;
+    * ``q_offset``: the cache column of query 0 (a prefill segment);
+    * per tile: the full chunks in ascending order, then the ragged tail,
+      which re-reads the last ``block_k`` rows with the rows the full
+      chunks covered masked out.  Chunks wholly above the causal diagonal
+      are skipped, which is exact (a fully masked chunk changes nothing);
+      so a segment whose ``q_offset`` is a multiple of ``block_q`` gives
+      the bits of the same rows of the one-shot call;
+    * masked probabilities are exactly 0 and fully masked rows give 0.
+
+    Both products take operands in q's dtype with f32 accumulation.  No
+    (B, H, S, KV) tensor and no whole-cache conversion is made."""
+    if q_bshd:
+        b, s, h, d = q.shape
+    else:
+        b, h, s, d = q.shape
+    dtype = q.dtype
+    kv_axis = 1 if kv_bshd else 2
+    kv_len = k.shape[kv_axis]
+    sc_axis = 2 if scales_bhs else kv_axis
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+
+    def heads_major(t):           # a (B, KV-slice, H, ...) slice → (B, H, ...)
+        return t.transpose(1, 2) if kv_bshd else t
+
+    def attend(carry, q_blk, q_pos, kv_start, blk, min_kv=0):
+        acc, m_i, l_i = carry
+        bq = q_blk.shape[2]
+        k_blk = heads_major(k.narrow(kv_axis, kv_start, blk)).to(dtype).contiguous()
+        v_blk = heads_major(v.narrow(kv_axis, kv_start, blk)).to(dtype).contiguous()
+        logits = _bmm_f32(q_blk.reshape(b * h, bq, d),
+                          k_blk.reshape(b * h, blk, d).transpose(1, 2)).view(b, h, bq, blk)
+        logits = logits * scale
+        if k_scale is not None:
+            ks = k_scale.narrow(sc_axis, kv_start, blk)
+            if kv_bshd and not scales_bhs:
+                ks = ks.transpose(1, 2)
+            logits = logits * ks[:, :, None, :]
+        kv_pos = torch.arange(kv_start, kv_start + blk, device=dev)
+        valid = mask[:, kv_start:kv_start + blk].bool()[:, None, None, :]
+        if min_kv:
+            valid = valid & (kv_pos >= min_kv)
+        if causal:
+            valid = valid & (kv_pos[None, :] <= q_pos[:, None])
+        logits = torch.where(valid, logits, NEG_INF)
+        m_new = torch.maximum(m_i, logits.amax(dim=-1, keepdim=True))
+        p = torch.where(valid, torch.exp(logits - m_new), 0.0)
+        alpha = torch.exp(m_i - m_new)
+        l_new = alpha * l_i + p.sum(dim=-1, keepdim=True)
+        if v_scale is not None:
+            vs = v_scale.narrow(sc_axis, kv_start, blk)
+            if kv_bshd and not scales_bhs:
+                vs = vs.transpose(1, 2)
+            p = p * vs[:, :, None, :]
+        pv = _bmm_f32(p.to(dtype).reshape(b * h, bq, blk), v_blk.reshape(b * h, blk, d))
+        return acc * alpha + pv.view(b, h, bq, d), m_new, l_new
+
+    num_full = kv_len // block_k
+    tail_len = kv_len - num_full * block_k
+    tail_blk = min(block_k, kv_len)
+    tail_start = kv_len - tail_blk
+    tiles = []
+    for qs in range(0, s, block_q):
+        bq = min(block_q, s - qs)
+        q_blk = q[:, qs:qs + bq].transpose(1, 2) if q_bshd else q[:, :, qs:qs + bq]
+        q_blk = q_blk.contiguous()
+        q_pos = torch.arange(q_offset + qs, q_offset + qs + bq, device=dev)
+        q_end = q_offset + qs + bq - 1
+        if causal:
+            nf = min((q_end + block_k) // block_k, num_full)
+            need_tail = tail_len > 0 and q_end >= num_full * block_k
+        else:
+            nf, need_tail = num_full, tail_len > 0
+        carry = (torch.zeros((b, h, bq, d), dtype=torch.float32, device=dev),
+                 torch.full((b, h, bq, 1), NEG_INF, dtype=torch.float32, device=dev),
+                 torch.zeros((b, h, bq, 1), dtype=torch.float32, device=dev))
+        for c in range(nf):
+            carry = attend(carry, q_blk, q_pos, c * block_k, block_k)
+        if need_tail or nf == 0:
+            carry = attend(carry, q_blk, q_pos, tail_start, tail_blk,
+                           min_kv=num_full * block_k if tail_start else 0)
+        acc, _, l_i = carry
+        out = (acc / torch.where(l_i == 0, 1.0, l_i)).to(dtype)
+        tiles.append(out.transpose(1, 2) if q_bshd else out)
+    return torch.cat(tiles, dim=1 if q_bshd else 2)
 
 
 def decode_attention(q, k, v, mask, k_scale, v_scale) -> torch.Tensor:

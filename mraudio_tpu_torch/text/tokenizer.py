@@ -121,3 +121,40 @@ class ByteTokenizer:
         seqs = [self.encode(t, add_special_tokens) for t in texts]
         return _pad_batch(seqs, max_length, self.pad_token_id, padding_side, truncation_side)
 
+
+
+def required_token_budget(tokenizer, values, template: str = " {} ") -> int:
+    """Max token count of ``template.format(v)`` over ``values`` for any
+    tokenizer implementing the protocol: what the static
+    ``tokens_per_timestamp`` / ``tokens_per_duration`` budgets must hold."""
+    return max(
+        len(tokenizer.encode(template.format(v), add_special_tokens=False))
+        for v in values
+    )
+
+
+def validate_time_budgets(tokenizer, cfg, max_seconds: int = 10_000) -> None:
+    """Raise if any timestamp/duration rendering in [0, max_seconds]
+    would overflow the model config's static budgets.  Sweeps the worst
+    cases per digit count rather than every integer."""
+    probes = [0, 1, 7, 9]
+    v = 9
+    while v <= max_seconds:
+        probes.extend([v, min(v + 1, max_seconds)])
+        v = v * 10 + 9
+    probes.append(max_seconds)
+    need_ts = required_token_budget(tokenizer, probes, " {} ")
+    need_dur = required_token_budget(tokenizer, probes, "{} ")
+    errors = []
+    if need_ts > cfg.tokens_per_timestamp:
+        errors.append(
+            f"tokens_per_timestamp={cfg.tokens_per_timestamp} < required "
+            f"{need_ts} for values up to {max_seconds}s"
+        )
+    if need_dur > cfg.tokens_per_duration:
+        errors.append(
+            f"tokens_per_duration={cfg.tokens_per_duration} < required "
+            f"{need_dur} for values up to {max_seconds}s"
+        )
+    if errors:
+        raise ValueError("; ".join(errors))

@@ -48,3 +48,15 @@ def test_package_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_native_bindings_build_into_build_dir():
+    """The port builds its own decode library under ``build/`` from the C++
+    source and never loads or writes the JAX package's artifact in
+    ``native/``."""
+    from mraudio_tpu_torch.data import native_bindings as nb
+
+    src = (ROOT / "mraudio_tpu_torch" / "data" / "native_bindings.py").read_text()
+    assert "libmraudio_native.so" in src and "native/libmraudio_native.so" not in src
+    assert pathlib.Path(nb._LIB_PATH).parent == ROOT / "build" / "native"
+    assert pathlib.Path(nb._SOURCE) == ROOT / "native" / "mraudio_native.cc"
