@@ -16,15 +16,23 @@ Phases, each printing one JSON line with its seconds:
    with exact zeros for fully masked rows; the GEMV must give the same bits
    under every launch setting, at B = 1, 8 and 32 and at two small odd
    shapes too, and the bits of its documented reduction order
-   (``decode_gemv_in_order``).  Plain ops (no kernel: XLA in the
-   reference) timed at their shapes: the int8 decode attention, and
-   ``chunked_attention`` one-shot and as three prefill segments, whose
-   output must be bit-identical, held against flash, and the default
-   configuration's int8 decode projections (``decode_gemv="xla"``);
+   (``decode_gemv_in_order``); at M = 12 rows (a speculative pass: 3
+   rows x 4 positions) it is timed too, and each row must give the bits
+   of the same row in an M = 3 launch.  Plain ops (no kernel: XLA in the
+   reference) timed at their shapes: ``chunked_attention`` one-shot and
+   as three prefill segments, whose output must be bit-identical, held
+   against flash; its per-row route (``q_abs``: 3 rows of 4 queries at
+   ragged columns, and the one-token decode step), held against a dense
+   f32 computation and, with every row at one column, bit-identical to
+   the ``q_offset`` route; and the default configuration's int8 decode
+   projections (``decode_gemv="xla"``), whose rows must keep their bits
+   at 4x the rows;
 4. small reference: a narrow slice model (head_dim 128) generates on the
    card and on the CPU (plain versions) from the same weights; the
-   prefill logits must agree, one-shot and in three 512-token prefill
-   segments of a 32-frame batch;
+   prefill logits must agree, one-shot, in three 512-token prefill
+   segments of a 32-frame batch, and under the ``--fast`` preset
+   (temporal-residual ViT, yuv420 wire, grammar decoding at
+   ``spec_width=4``), whose texts must parse;
 5. full-width generate: X-InstructBLIP (EVA-ViT-g, BEATs, two Q-Formers,
    int8 Vicuna-7B with int8 KV cache) on 3 synthetic QVHighlights clips
    (60 frames of 224² RGB, 152 s of 16 kHz audio), random weights from a
@@ -37,11 +45,20 @@ Phases, each printing one JSON line with its seconds:
    launch counts asserted, logits compared with the one-shot run; then
    ``attention_impl="chunked"`` one-shot and segmented (0 flash launches),
    which part flash-vs-chunked from the projections' row count;
-8. evaluate: the model freed, the evaluate CLI in-process at full width
-   in the deployed default configuration (chunked attention, XLA-route
-   projections, no kernel: 0 launches asserted) on 5 synthetic QVH clips
-   at batch 3, its JSONL checked and scored with the port's scorer; then
-   its first batch once more under ``--profile-dir``, broken down as in 6.
+8. grammar generate: the same model and batch with grammar-constrained
+   decoding at ``spec_width`` 4 and 1: launch counts asserted (32 flash,
+   7 x 32 GEMV per pass), every text parses to windows, and the tokens of
+   the two widths must be identical; then the pair again with the default
+   configuration's plain projections (``decode_gemv="xla"``);
+9. lookup generate: ``lookup_spec=4``; its tokens must be greedy's (5);
+10. evaluate: the model freed, the evaluate CLI in-process at full width
+    in the deployed default configuration (chunked attention, XLA-route
+    projections, no kernel: 0 launches asserted) on 5 synthetic QVH clips
+    at batch 3, its JSONL checked and scored with the port's scorer; then
+    its first batch once more under ``--profile-dir``, broken down as in 6;
+11. fast evaluate: the same with ``--fast`` (the yuv420 wire, the
+    temporal-residual ViT, grammar decoding): 0 kernel launches and 0
+    invalid predictions asserted.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 the per-kernel summary ``{"kernels": [...]}``, and
@@ -362,21 +379,97 @@ def check_gemv_other(gen) -> dict:
     return out
 
 
-def check_decode_attention(dev, b, h, kv, d, gen):
-    """Plain int8 decode attention (no kernel: the reference runs it in
-    XLA) timed at the decode shape, one layer, one step."""
-    from mraudio_tpu_torch.models.llama import quantize_kv
-    from mraudio_tpu_torch.ops.attention import decode_attention
+def check_gemv_rows(gen, m: int = 12, split: int = 3) -> dict:
+    """At the three int8 shapes, the GEMV at ``m`` rows (a speculative
+    pass: 3 rows x 4 positions) gives each row the bits it has in an
+    M = ``split`` launch: rows are independent and the order is K's."""
+    from mraudio_tpu_torch.ops.gemv import decode_gemv
 
-    q = torch.randn((b, 1, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    out = {}
+    for kdim, n in ((4096, 4096), (4096, 11008), (11008, 4096)):
+        x, ws, scale = _gemv_inputs(m, kdim, n, True, gen)
+        y = decode_gemv(x, ws[0], scale)
+        for r0 in range(0, m, split):
+            part = decode_gemv(x[r0:r0 + split].contiguous(), ws[0], scale)
+            if not torch.equal(y[r0:r0 + split], part):
+                raise AssertionError(f"decode_gemv {kdim}x{n}: rows {r0}..{r0 + split - 1} of an "
+                                     f"M={m} launch differ from an M={split} launch")
+        out[f"{kdim}x{n}"] = f"M={m} rows bit-identical to M={split} launches"
+    return out
+
+
+def _dense_attention(q, kq, vq, ks, vs, mask, q_abs):
+    """The function ``chunked_attention`` computes, in f32 over the whole
+    cache at once: q (B, W, H, D), int8 k/v (B, KV, H, D), scales
+    (B, H, KV); per-row causal at ``q_abs`` (B, W).  Returns (B, H, W, D)."""
+    d = q.shape[-1]
+    logits = torch.einsum("bwhd,bkhd->bhwk", q.float(), kq.float()) * (1.0 / math.sqrt(d))
+    logits = logits * ks[:, :, None, :]
+    cols = torch.arange(kq.shape[1], device=q.device)
+    valid = mask[:, None, None, :].bool() & (cols <= q_abs[:, None, :, None])
+    m = torch.where(valid, logits, -1e30).amax(-1, keepdim=True)
+    p = torch.where(valid, torch.exp(logits - m), 0.0)
+    out = torch.einsum("bhwk,bkhd->bhwd", p * vs[:, :, None, :], vq.float())
+    return out / p.sum(-1, keepdim=True)
+
+
+def check_per_row_attention(dev, b, h, s, w, d, gen):
+    """Plain ``chunked_attention``'s per-row route (``q_abs``; no kernel:
+    XLA in the reference) at the decode passes' shapes over the int8
+    cache of an ``s``-token prefix (``s + 64 + 16`` columns, as every
+    decoder allocates): ``b`` rows of ``w`` queries at ragged columns (a
+    speculative pass), then of 1 (a greedy step).  Each is held against a
+    dense f32 computation of the same function under the flash rule, must
+    give, with every row at one column, the bits of the ``q_offset``
+    route, and is timed (one layer)."""
+    from mraudio_tpu_torch.infer.generate import MAX_SPEC_WIDTH
+    from mraudio_tpu_torch.models.llama import quantize_kv
+    from mraudio_tpu_torch.ops.attention import chunked_attention
+
+    kv = s + 64 + MAX_SPEC_WIDTH
     kq, ks = quantize_kv(torch.randn((b, kv, h, d), generator=gen, device=dev))
     vq, vs = quantize_kv(torch.randn((b, kv, h, d), generator=gen, device=dev))
-    mask = torch.ones((b, kv), dtype=torch.int32, device=dev)
     ks, vs = ks.transpose(1, 2).contiguous(), vs.transpose(1, 2).contiguous()
-    ms = cuda_ms(lambda: decode_attention(q, kq, vq, mask, ks, vs), iters=20)
-    nbytes = 2.0 * b * kv * h * d + 2 * 4.0 * b * h * kv
-    return dict(name="decode_attention (plain, int8 KV)", ms=ms,
-                bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes")
+    kw = dict(causal=True, k_scale=ks, v_scale=vs, scales_bhs=True, kv_bshd=True, q_bshd=True)
+    cols = torch.arange(kv, device=dev)
+    starts = torch.tensor([s + 10, s + 33, s + 57][:b], device=dev)
+    out = {}
+    for width in (w, 1):
+        q = torch.randn((b, width, h, d), generator=gen, device=dev).to(torch.bfloat16)
+        q_abs = starts[:, None] + torch.arange(width, device=dev)[None]
+        mask = (cols[None] <= q_abs[:, -1:]).to(torch.int32)
+        mask[1, 1000:1040] = 0          # interior padding (timestamp slots)
+        mask[2, :17] = 0                # left padding
+        got = chunked_attention(q, kq, vq, mask, q_abs=q_abs, **kw)
+        ref = _dense_attention(q, kq, vq, ks, vs, mask, q_abs)
+        excess = flash_excess(got.transpose(1, 2), ref)
+        max_err = float((got.transpose(1, 2).float() - ref).abs().max())
+        if not excess <= 1.0 or not bool(torch.isfinite(got.float()).all()):
+            raise AssertionError(f"chunked_attention q_abs W={width}: max |err| {max_err}, "
+                                 f"{excess} x the flash rule against dense f32")
+        col = s + 33
+        shared = (col + torch.arange(width, device=dev))[None].expand(b, width)
+        smask = (cols[None] <= col + width - 1).to(torch.int32).expand(b, kv)
+        at_shared = chunked_attention(q, kq, vq, smask, q_abs=shared, **kw)
+        if not torch.equal(at_shared, chunked_attention(q, kq, vq, smask, q_offset=col, **kw)):
+            raise AssertionError(f"chunked_attention W={width}: q_abs at one column differs "
+                                 "from the q_offset route")
+        # a query keeps its bits alone in its pass, as a greedy step
+        for j in range(width):
+            jmask = (cols[None] <= col + j).to(torch.int32).expand(b, kv)
+            alone = chunked_attention(q[:, j:j + 1], kq, vq, jmask, q_offset=col + j, **kw)
+            if not torch.equal(at_shared[:, j:j + 1], alone):
+                raise AssertionError(f"chunked_attention W={width}: query {j} differs from the "
+                                     "same query alone")
+        ms = cuda_ms(lambda: chunked_attention(q, kq, vq, mask, q_abs=q_abs, **kw), iters=20)
+        valid_pairs = int(((cols[None, None] <= q_abs[:, :, None]) & mask[:, None].bool()).sum())
+        flops = 4.0 * h * d * valid_pairs
+        nbytes = 2.0 * b * kv * h * d + 2 * 4.0 * b * h * kv + 4.0 * b * kv + 2 * 2.0 * b * width * h * d
+        bms, by = bound_ms(nbytes, flops, PEAK_BF16_TENSOR_FLOPS)
+        out[f"w{width}"] = dict(ms=ms, bound_ms=bms, bound_by=by, max_abs_err_vs_dense=max_err,
+                                err_over_limit=excess, shared_column_equals_q_offset=True)
+    return dict(name="chunked_attention per-row route (plain, int8 KV, q_abs)",
+                shape=dict(b=b, h=h, kv=kv, d=d, w=w), per="one layer, one pass", **out)
 
 
 def check_xla_projections(dev, b, gen, cold_bytes=160e6) -> dict:
@@ -405,11 +498,17 @@ def check_xla_projections(dev, b, gen, cold_bytes=160e6) -> dict:
             return lins[it[0]](x)
 
         per_shape[f"{kdim}x{n}"] = graph_ms(call)
+        # a row keeps its bits when 4x the rows share the call (a
+        # speculative pass): the plain matmul pads decode-shaped calls
+        x12 = torch.randn((4 * b, kdim), generator=gen, device=dev).to(torch.bfloat16)
+        if not torch.equal(lins[0](x12)[:b], lins[0](x12[:b])):
+            raise AssertionError(f"XLA-route projection {kdim}x{n}: rows change with M")
     layer_ms = (4 * per_shape["4096x4096"] + 2 * per_shape["4096x11008"]
                 + per_shape["11008x4096"])
     return dict(name="decode projections, XLA route (plain, int8 weights)", b=b,
                 ms_by_shape=per_shape, layer_ms=layer_ms,
-                per="one decoder layer: q,k,v,o,gate,up,down int8 at B=3")
+                per="one decoder layer: q,k,v,o,gate,up,down int8 at B=3",
+                rows_bit_identical_at_4x_rows=True)
 
 
 def check_chunked_attention(dev, b, h, s, kv, d, chunk, gen):
@@ -602,7 +701,72 @@ def small_reference(dev, chunk: int = 512):
                 texts_equal=same, texts_cuda=results["cuda"][1], texts_cpu=results["cpu"][1],
                 segmented=dict(prefill_chunk=chunk, prefix_len=prefix, prefill_segments=segments,
                                flash_launches=launches, prefill_logit_max_abs_err=seg_err,
-                               texts_equal=results["cuda"][3] == results["cpu"][3]))
+                               texts_equal=results["cuda"][3] == results["cpu"][3]),
+                fast=small_fast(cfg, audio_cfg, cpu, dev, batch))
+
+
+def small_fast(cfg, audio_cfg, cpu_base, dev, batch, max_new_tokens: int = 16):
+    """The narrow model under the ``--fast`` preset (temporal-residual ViT,
+    the yuv420 wire, grammar decoding at ``spec_width=4``; a 16-token
+    budget, so that a span can close), card against CPU from the same
+    weights: the prefill logits within the same limit, launch counts on
+    the card, and every text on both parsing to windows."""
+    from mraudio_tpu_torch.config import RunConfig, apply_fast_preset
+    from mraudio_tpu_torch.models.casting import cast_params_for_inference
+    from mraudio_tpu_torch.models.xinstructblip import XInstructBLIP
+    from mraudio_tpu_torch.ops.attention import flash_attention
+    from mraudio_tpu_torch.ops.gemv import decode_gemv
+
+    fast = apply_fast_preset(RunConfig(model=cfg)).model.replace(max_new_tokens=max_new_tokens)
+    runs = {}
+    for name, device in (("cpu", "cpu"), ("cuda", dev)):
+        model = XInstructBLIP(fast, audio_cfg=audio_cfg, device=device)
+        model.load_state_dict(cpu_base.state_dict())
+        cast_params_for_inference(model)
+        stats = {}
+        flash_attention.launches = decode_gemv.launches = 0
+        texts = model.generate(batch=batch, stats=stats)
+        runs[name] = dict(texts=texts, logits=stats["prefill_logits"].cpu(),
+                          passes=stats["decode_steps"], tokens=stats["decode_tokens"],
+                          launches=(flash_attention.launches, decode_gemv.launches))
+    v, layers = cfg.llm.vocab_size, cfg.llm.num_layers
+    err = float((runs["cuda"]["logits"][:, :v] - runs["cpu"]["logits"][:, :v]).abs().max())
+    if not err <= SMALL_LOGIT_ATOL:
+        raise AssertionError(f"small model, fast preset: card vs CPU prefill logits differ by {err}")
+    if runs["cuda"]["launches"] != (layers, gemv_launches(cfg.llm, runs["cuda"]["passes"])):
+        raise AssertionError(f"small model, fast preset: launches {runs['cuda']['launches']}, "
+                             f"{runs['cuda']['passes']} passes")
+    windows = {name: [_windows(t) for t in r["texts"]] for name, r in runs.items()}
+    return dict(prefill_logit_max_abs_err=err, tol=SMALL_LOGIT_ATOL,
+                texts_equal=runs["cuda"]["texts"] == runs["cpu"]["texts"],
+                texts_cuda=runs["cuda"]["texts"], texts_cpu=runs["cpu"]["texts"],
+                windows=windows, passes={n: r["passes"] for n, r in runs.items()},
+                committed_tokens={n: r["tokens"] for n, r in runs.items()},
+                launches_cuda=runs["cuda"]["launches"])
+
+
+def gemv_launches(llm_cfg, passes: int) -> int:
+    """GEMV launches of a generate that makes ``passes`` decode passes:
+    the seven projections of every layer per pass, plus the lm_head once
+    per pass and once for the prefill's last position where its width
+    tiles (the narrow model's 264; full width's 32008 does not)."""
+    from mraudio_tpu_torch.ops.gemv import supports
+
+    if llm_cfg.decode_gemv != "pallas":
+        return 0
+    head = int(supports(llm_cfg.hidden_size, llm_cfg.padded_vocab_size))
+    return passes * (7 * llm_cfg.num_layers + head) + head
+
+
+def _windows(text: str) -> list:
+    """The windows a grammar-decoded text parses to; any parse failure
+    (the scorer's [-1, -1]) raises."""
+    from mraudio_tpu_torch.text.postprocess import moment_str_to_list, post_process
+
+    wins = moment_str_to_list(post_process(text))
+    if not wins or any(not isinstance(w, list) or len(w) != 2 or w == [-1, -1] for w in wins):
+        raise AssertionError(f"grammar-decoded text {text!r} does not parse: {wins}")
+    return wins
 
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -684,7 +848,9 @@ def full_generate(dev, seed: int = 0):
     flash_attention.launches = 0
     decode_gemv.launches = 0
     t1 = time.perf_counter()
-    texts = model.generate(batch=batch, stats=stats)
+    pending = model.generate_submit(batch=batch, stats=stats)
+    tokens = pending[0].cpu()
+    texts = model.generate_finalize(pending)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     launches = {"flash_attention": flash_attention.launches, "decode_gemv": decode_gemv.launches}
@@ -706,7 +872,7 @@ def full_generate(dev, seed: int = 0):
         wall_s=wall, clips_per_s=3 / wall,
         peak_mem_bytes=torch.cuda.max_memory_allocated(),
         launches=launches, texts=texts, windows=windows,
-    ), model, batch, stats["prefill_logits"]
+    ), model, batch, stats["prefill_logits"], tokens
 
 
 def segmented_prefill(model, batch, one_shot: dict, one_shot_logits, chunk: int = 2048):
@@ -774,21 +940,99 @@ def segmented_prefill(model, batch, one_shot: dict, one_shot_logits, chunk: int 
                           for name in ("chunked_one_shot", "chunked_segmented")}))
 
 
-def evaluate_cli() -> dict:
+@contextlib.contextmanager
+def model_settings(model, **changes):
+    """``XInstructBLIPConfig`` fields changed on the assembly for the
+    duration (the decoder it runs: ``constrained_decoding``,
+    ``spec_width``, ``lookup_spec``)."""
+    held = model.cfg
+    model.cfg = held.replace(**changes)
+    try:
+        yield
+    finally:
+        model.cfg = held
+
+
+def run_decoder(model, batch, **changes) -> dict:
+    """One ``generate`` of the slice model with ``changes``, launch counts
+    read around it; the tokens kept for comparisons."""
+    from mraudio_tpu_torch.ops.attention import flash_attention
+    from mraudio_tpu_torch.ops.gemv import decode_gemv
+
+    stats = {}
+    flash_attention.launches = 0
+    decode_gemv.launches = 0
+    with model_settings(model, **changes):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pending = model.generate_submit(batch=batch, stats=stats)
+        tokens = pending[0].cpu()
+        texts = model.generate_finalize(pending)
+        wall = time.perf_counter() - t
+    layers = model.llm.cfg.num_layers
+    launches = {"flash_attention": flash_attention.launches, "decode_gemv": decode_gemv.launches}
+    passes = stats["decode_steps"]
+    want = {"flash_attention": layers, "decode_gemv": gemv_launches(model.llm.cfg, passes)}
+    if launches != want:
+        raise AssertionError(f"{changes}: launches {launches} for {passes} passes, want {want}")
+    return dict(tokens=tokens, texts=texts, launches=launches, passes=passes,
+                committed_tokens=stats["decode_tokens"], prefill_s=stats["prefill_s"],
+                decode_s=stats["decode_s"], wall_s=wall)
+
+
+def _summary(run: dict) -> dict:
+    return {k: v for k, v in run.items() if k != "tokens"}
+
+
+def grammar_decode(model, batch) -> dict:
+    """Grammar-constrained decoding of the slice model at ``spec_width`` 4
+    and 1: every text parses to windows, and the tokens of the two widths
+    are identical (the reference's contract; here it rests on a per-row
+    arithmetic that does not depend on how many rows share a pass).  Then
+    the same pair with the default configuration's projections
+    (``decode_gemv="xla"``), whose plain matmuls must keep it too."""
+    out = {}
+    for route in ("pallas", "xla"):
+        with llm_settings(model, decode_gemv=route):
+            runs = {w: run_decoder(model, batch, constrained_decoding=True, spec_width=w)
+                    for w in (4, 1)}
+        windows = [_windows(t) for t in runs[4]["texts"]]
+        if not torch.equal(runs[4]["tokens"], runs[1]["tokens"]):
+            raise AssertionError(f"grammar decoding, decode_gemv={route}: spec_width 4 and 1 "
+                                 f"give other tokens: {runs[4]['texts']} vs {runs[1]['texts']}")
+        out[route] = dict(windows=windows, tokens_identical=True,
+                          spec_width_4=_summary(runs[4]), spec_width_1=_summary(runs[1]))
+    return dict(launches=out["pallas"]["spec_width_4"]["launches"], **out)
+
+
+def lookup_decode(model, batch, greedy: dict, greedy_tokens) -> dict:
+    """Lookup self-speculation (``lookup_spec=4``) of the slice model: its
+    tokens must be greedy's (``full_generate``)."""
+    run = run_decoder(model, batch, lookup_spec=4)
+    if not torch.equal(run["tokens"], greedy_tokens):
+        raise AssertionError(f"lookup decoding differs from greedy: {run['texts']} vs "
+                             f"{greedy['texts']}")
+    return dict(tokens_equal_greedy=True, greedy_steps=greedy["decode_steps"], **_summary(run))
+
+
+def evaluate_cli(fast: bool = False) -> dict:
     """The evaluate CLI in-process at full width in the deployed default
     configuration (``--model-size full``: chunked attention, XLA-route
     projections, ``prefill_chunk=2048``) on 5 synthetic QVH clips at batch
     3 (two batches, the second with a padding row), then the port's
     scorer on its JSONL.  The default configuration routes around both
-    kernels: 0 launches of each are asserted."""
+    kernels: 0 launches of each are asserted.  ``fast`` adds ``--fast``
+    (the yuv420 wire, the temporal-residual ViT, grammar decoding at
+    ``spec_width=4``): then no prediction may be invalid."""
     from mraudio_tpu_torch.cli import evaluate as cli
     from mraudio_tpu_torch.eval.mr_eval import eval_submission
     from mraudio_tpu_torch.eval.span_utils import load_jsonl
     from mraudio_tpu_torch.ops.attention import flash_attention
     from mraudio_tpu_torch.ops.gemv import decode_gemv
 
-    root = Path(__file__).resolve().parent / "build" / "smoke"
+    root = Path(__file__).resolve().parent / "build" / ("smoke_fast" if fast else "smoke")
     root.mkdir(parents=True, exist_ok=True)
+    extra = ["--fast"] if fast else []
     queries = ["a man in a red jacket talks to the camera on a busy street",
                "two dogs chase a ball across the beach at sunset",
                "a woman slices vegetables and adds them to a pan"]
@@ -804,12 +1048,13 @@ def evaluate_cli() -> dict:
     t = time.perf_counter()
     result = cli.main(["--annotation-file", str(gt), "--output-file", str(out),
                        "--model-size", "full", "--video-source", "synthetic",
-                       "--batch-size", "3"])
+                       "--batch-size", "3", *extra])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = {"flash_attention": flash_attention.launches, "decode_gemv": decode_gemv.launches}
     if launches != {"flash_attention": 0, "decode_gemv": 0}:
-        raise AssertionError(f"evaluate (default config) launched kernels: {launches}")
+        raise AssertionError(f"evaluate (default config{', --fast' if fast else ''}) launched "
+                             f"kernels: {launches}")
     records = load_jsonl(str(out))
     if [r["qid"] for r in records] != list(range(5)) or records != result["records"]:
         raise AssertionError(f"evaluate wrote qids {[r['qid'] for r in records]}")
@@ -823,6 +1068,8 @@ def evaluate_cli() -> dict:
     if len(batches) != 2 or any(bt["prefill_segments"] != 3 for bt in batches):
         raise AssertionError(f"evaluate: batches {batches}")
     metrics = eval_submission(records, anns, verbose=False)
+    if fast and metrics["brief"]["MR-full-invalid_pred_num"] != 0:
+        raise AssertionError(f"fast evaluate: invalid predictions {metrics['brief']}")
     peak = torch.cuda.max_memory_allocated()
 
     # the first batch once more under --profile-dir: where its time goes
@@ -830,7 +1077,7 @@ def evaluate_cli() -> dict:
     gt3.write_text("".join(json.dumps(a) + "\n" for a in anns[:3]))
     cli.main(["--annotation-file", str(gt3), "--output-file", str(root / "profiled.jsonl"),
               "--model-size", "full", "--video-source", "synthetic", "--batch-size", "3",
-              "--profile-dir", str(root / "profile")])
+              "--profile-dir", str(root / "profile"), *extra])
     breakdown = phase_breakdown(root / "profile" / "trace.json", batches[0])
     return dict(records=len(records), launches=launches, clips_per_sec=result["clips_per_sec"],
                 wall_s_with_model_build=wall, stages=result["stages"], batches=batches,
@@ -867,35 +1114,51 @@ def main() -> int:
     results["build"] = dict(nvcc_s=build_s)
     emit({"phase": "build", **results["build"], "seconds": time.perf_counter() - t})
 
+    # the main path's shapes: a 5353-token QVH prefix of 3 clips, a cache of
+    # prefix + 64-token budget + the 16-column widest draft
+    b, h, d, s, kv = 3, 32, 128, 5353, 5353 + 64 + 16
     gen = torch.Generator(device=dev).manual_seed(0)
     t = time.perf_counter()
-    flash = check_flash(dev, 3, 32, 5353, 5417, 128, gen)
+    flash = check_flash(dev, b, h, s, kv, d, gen)
     emit({"phase": "kernel", **flash})
     flash_cases = check_flash_cases(dev, gen)
     emit({"phase": "kernel", "name": "flash_attention, smaller cases", "cases": flash_cases})
-    gemvs = []
+    gemvs, gemvs12 = [], []
     for kdim, n, int8 in ((4096, 4096, True), (4096, 11008, True), (11008, 4096, True),
                           (4096, 4096, False)):
-        r = check_gemv(dev, 3, kdim, n, int8, gen)
+        r = check_gemv(dev, b, kdim, n, int8, gen)
         emit({"phase": "kernel", **r})
         gemvs.append(r)
+    for kdim, n in ((4096, 4096), (4096, 11008), (11008, 4096)):   # a speculative pass
+        r = check_gemv(dev, 12, kdim, n, True, gen)
+        emit({"phase": "kernel", **r})
+        gemvs12.append(r)
+    gemv_rows = check_gemv_rows(gen)
+    emit({"phase": "kernel", "name": "decode_gemv, M=12 rows vs M=3 launches",
+          "rows": gemv_rows})
     gemv_other = check_gemv_other(gen)
     emit({"phase": "kernel", "name": "decode_gemv, other row counts and shapes",
           "vs_plain": gemv_other})
-    dattn = check_decode_attention(dev, 3, 32, 5417, 128, gen)
-    emit({"phase": "plain_op", **dattn})
-    chunked = check_chunked_attention(dev, 3, 32, 5353, 5417, 128, 2048, gen)
+    per_row = check_per_row_attention(dev, b, h, s, 4, d, gen)
+    emit({"phase": "plain_op", **per_row})
+    chunked = check_chunked_attention(dev, b, h, s, kv, d, 2048, gen)
     emit({"phase": "plain_op", **chunked})
-    xla_proj = check_xla_projections(dev, 3, gen)
+    xla_proj = check_xla_projections(dev, b, gen)
     emit({"phase": "plain_op", **xla_proj})
-    # one decoder layer's GEMVs: q, k, v, o (4096²), gate, up, down
-    per_layer = [gemvs[0]] * 4 + [gemvs[1]] * 2 + [gemvs[2]]
-    gemv_layer = {key: sum(r[key] for r in per_layer)
-                  for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    results["kernels"] = dict(flash=flash, flash_cases=flash_cases, gemv=gemvs,
-                              gemv_other=gemv_other, decode_attention=dattn,
-                              chunked_attention=chunked, xla_projections=xla_proj,
-                              gemv_layer=gemv_layer)
+
+    def layer(rs):      # one decoder layer's GEMVs: q, k, v, o (4096²), gate, up, down
+        per_layer = [rs[0]] * 4 + [rs[1]] * 2 + [rs[2]]
+        return {key: sum(r[key] for r in per_layer)
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+
+    gemv_layer, gemv_layer12 = layer(gemvs), layer(gemvs12)
+    emit({"phase": "kernel", "name": "decode_gemv, one decoder layer",
+          "b3": gemv_layer, "b12": gemv_layer12})
+    results["kernels"] = dict(flash=flash, flash_cases=flash_cases, gemv=gemvs, gemv12=gemvs12,
+                              gemv_rows=gemv_rows, gemv_other=gemv_other,
+                              per_row_attention=per_row, chunked_attention=chunked,
+                              xla_projections=xla_proj, gemv_layer=gemv_layer,
+                              gemv_layer12=gemv_layer12)
     emit({"phase": "kernels", "seconds": time.perf_counter() - t})
 
     t = time.perf_counter()
@@ -903,7 +1166,7 @@ def main() -> int:
     emit({"phase": "small_reference", **results["small"], "seconds": time.perf_counter() - t})
 
     t = time.perf_counter()
-    full, model, batch, full_logits = full_generate(dev)
+    full, model, batch, full_logits, greedy_tokens = full_generate(dev)
     results["full"] = full
     emit({"phase": "full_generate", **full, "seconds": time.perf_counter() - t})
 
@@ -915,6 +1178,14 @@ def main() -> int:
     results["segmented"] = segmented_prefill(model, batch, full, full_logits)
     emit({"phase": "segmented_prefill", **results["segmented"],
           "seconds": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    results["grammar"] = grammar_decode(model, batch)
+    emit({"phase": "grammar_generate", **results["grammar"], "seconds": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    results["lookup"] = lookup_decode(model, batch, full, greedy_tokens)
+    emit({"phase": "lookup_generate", **results["lookup"], "seconds": time.perf_counter() - t})
     del model, batch, full_logits
     gc.collect()
     torch.cuda.empty_cache()
@@ -922,9 +1193,17 @@ def main() -> int:
     t = time.perf_counter()
     results["evaluate"] = evaluate_cli()
     emit({"phase": "evaluate", **results["evaluate"], "seconds": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    results["fast_evaluate"] = evaluate_cli(fast=True)
+    emit({"phase": "fast_evaluate", **results["fast_evaluate"],
+          "seconds": time.perf_counter() - t})
     launches_by_path = {name: {"full_generate": full["launches"][name],
                                "segmented_prefill": results["segmented"]["launches"][name],
-                               "evaluate": results["evaluate"]["launches"][name]}
+                               "grammar_generate": results["grammar"]["launches"][name],
+                               "lookup_generate": results["lookup"]["launches"][name],
+                               "evaluate": results["evaluate"]["launches"][name],
+                               "fast_evaluate": results["fast_evaluate"]["launches"][name]}
                         for name in ("flash_attention", "decode_gemv")}
 
     kernels = [
@@ -941,9 +1220,9 @@ def main() -> int:
              replaces="mraudio_tpu/ops/gemv.py:109",
              launches=full["launches"]["decode_gemv"],
              launches_by_path=launches_by_path["decode_gemv"],
-             max_abs_err=max(r["max_abs_err"] for r in gemvs),
+             max_abs_err=max(r["max_abs_err"] for r in gemvs + gemvs12),
              per="one decoder layer: q,k,v,o,gate,up,down int8 at B=3",
-             bound_by="bytes", **gemv_layer),
+             bound_by="bytes", **gemv_layer, b12=gemv_layer12),
     ]
     if args.out:
         with open(args.out, "w") as f:

@@ -9,7 +9,9 @@ The JAX package's flag surface (``mraudio_tpu/cli/evaluate.py``) plus
 (int8 Vicuna-7B, int8 KV cache, ``prefill_chunk=2048``, chunked
 attention, ``decode_gemv="xla"``) and ``DataConfig.for_dataset``;
 ``tiny`` the tiny presets; ``--config`` a YAML RunConfig.  Weights are
-random from ``train.seed``.  Flags whose machinery is not ported raise
+random from ``train.seed``.  ``--fast`` applies ``apply_fast_preset``
+(temporal-residual ViT, yuv420 wire, grammar-constrained decoding with
+``spec_width=4``).  Flags whose machinery is not ported raise
 ``NotImplementedError`` naming the ROADMAP.md item that brings it, and
 so does a ``--config`` that names converted weights or a tokenizer.
 """
@@ -25,7 +27,6 @@ _UNPORTED = {
     "audio_encoder": "A.8: tooling (converted weights)",
     "params_store": "A.8: tooling (param store)",
     "checkpoint": "A.5: training (checkpoints)",
-    "fast": "A.1 and A.3: grammar decoding, residual ViT and the yuv420 wire",
     "quant_encoders": "A.2: models/quant_tree.py",
     "seq_shard": "A.7: parallelism",
 }
@@ -90,7 +91,8 @@ def main(argv=None) -> dict:
     parser.add_argument("--seq-shard", action="store_true",
                         help="sequence parallelism for the prefill")
     parser.add_argument("--fast", action="store_true",
-                        help="the stacked-throughput preset (approximate)")
+                        help="the stacked-throughput preset: temporal-residual ViT (an "
+                             "approximation), yuv420 wire, grammar-constrained decoding")
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on (default cuda; cpu runs the plain "
                              "versions of the kernels)")
@@ -103,6 +105,10 @@ def main(argv=None) -> dict:
 
     logging.basicConfig(level=logging.INFO)
     cfg = build_config(args)
+    if args.fast:
+        from mraudio_tpu_torch.config import apply_fast_preset
+
+        cfg = apply_fast_preset(cfg)
 
     from mraudio_tpu_torch.infer.evaluate import run_inference
 

@@ -63,8 +63,9 @@ class ViTConfig(_ConfigBase):
     dtype: str = "bfloat16"
     mlp_act: str = "gelu"          # "gelu" (exact erf), "quick_gelu", "gelu_tanh"
     grad_checkpoint: bool = False
-    # Temporal-residual encoding; only keyframe_interval=1 (every frame
-    # through the full transformer) is ported.
+    # Temporal-residual encoding: every keyframe_interval-th frame runs
+    # the full transformer, the others only their residual_tokens
+    # most-changed patches (models/eva_vit.py; 1 = every frame in full).
     keyframe_interval: int = 1
     residual_tokens: int = 64
 
@@ -199,11 +200,17 @@ class XInstructBLIPConfig(_ConfigBase):
     tokens_per_duration: int = 5
     prefix: str = ""
     postfix: str = ""
-    constrained_decoding: bool = False   # not ported
+    # Grammar-constrained decoding with forced-token speculation over
+    # spec_width draft positions (infer/generate.py::grammar_generate).
+    constrained_decoding: bool = False
     spec_width: int = 4
-    lookup_spec: int = 0                 # not ported
+    # >= 2: lookup self-speculation over that many positions, tokens
+    # identical to greedy (infer/generate.py::lookup_generate).
+    lookup_spec: int = 0
     saliency_head: bool = False          # not ported
-    video_wire: str = "rgb"              # only "rgb" is ported
+    # "rgb" ships uint8 (B, T, H, W, 3); "yuv420" the I420 planes packed
+    # (B, T, H*3/2, W), RGB rebuilt on the device (ops/image.py).
+    video_wire: str = "rgb"
     # Clips per encoder pass (bounds the encoders' f32 attention-logits
     # temporaries to one clip's frames).  0 = the whole batch in one pass.
     encode_clips_per_pass: int = 1
@@ -260,7 +267,7 @@ class DataConfig(_ConfigBase):
     # "native" (libav through native/mraudio_native.cc), "synthetic"
     # (procedural, keyed on the path), "npy" (pre-extracted arrays)
     video_source: str = "native"
-    video_wire: str = "rgb"        # only "rgb" is ported
+    video_wire: str = "rgb"        # "rgb" or "yuv420" (get_batch_i420)
     audio: AudioFrontendConfig = field(default_factory=AudioFrontendConfig)
     num_chunks: int = 1
     chunk_idx: int = 0
@@ -395,6 +402,21 @@ def full_model_config() -> XInstructBLIPConfig:
         llm=LlamaConfig(quantization="int8", kv_quant="int8",
                         vocab_pad_multiple=8)
     )
+
+
+def apply_fast_preset(cfg: RunConfig) -> RunConfig:
+    """The evaluate CLI's ``--fast`` preset: the temporal-residual ViT
+    (``keyframe_interval=4``, ``residual_tokens=64``, an approximation),
+    the yuv420 wire for model and data, and grammar-constrained decoding
+    with ``spec_width=4`` (every output parses)."""
+    model = cfg.model.replace(
+        vit=cfg.model.vit.replace(keyframe_interval=4, residual_tokens=64),
+        constrained_decoding=True,
+        spec_width=4,
+        video_wire="yuv420",
+    )
+    data = cfg.data.replace(video_wire="yuv420")
+    return cfg.replace(model=model, data=data)
 
 
 def tiny_data_config(n_frms: int = 4) -> DataConfig:

@@ -1,6 +1,7 @@
 """Host-side dataset → static-shape batches with background prefetch.
 
-* Static shapes: video is always (B, n_frms, H, W, 3) uint8
+* Static shapes: video is always (B, n_frms, H, W, 3) uint8, or the
+  I420 wire (B, n_frms, H*3//2, W) with ``video_wire="yuv420"``
   (repeat-last-frame padding at the index level), audio a fixed-length
   int16 waveform; a short batch is padded with its last sample and
   carries a ``valid`` mask.
@@ -29,7 +30,7 @@ from mraudio_tpu_torch.text.prompts import build_prompt
 
 @dataclasses.dataclass
 class Sample:
-    video: np.ndarray          # (T, H, W, 3) uint8
+    video: np.ndarray          # (T, H, W, 3) uint8, or (T, H*3//2, W) I420
     audio: np.ndarray          # (num_samples,) int16 waveform
     timestamps: np.ndarray     # (T,) int32 seconds
     duration: float
@@ -71,9 +72,8 @@ class MRDataset:
         audio_source: AudioSource | None = None,
         seed: int = 42,
     ):
-        if cfg.video_wire != "rgb":
-            raise NotImplementedError(f"DataConfig.video_wire={cfg.video_wire!r} is not "
-                                      "ported yet")
+        if cfg.video_wire not in ("rgb", "yuv420"):
+            raise ValueError(f"unknown DataConfig.video_wire {cfg.video_wire!r}")
         if annotations is None:
             if annotation_path is None:
                 raise ValueError("need annotation_path or annotations")
@@ -125,8 +125,14 @@ class MRDataset:
     def _blank_sample(self, index: int) -> Sample:
         ann = self.annotation[index]
         size = self.cfg.image_size
+        if self.cfg.video_wire == "yuv420":
+            # black in I420: Y = 0, U = V = 128
+            vid = np.zeros((self.cfg.n_frms, size * 3 // 2, size), np.uint8)
+            vid[:, size:, :] = 128
+        else:
+            vid = np.zeros((self.cfg.n_frms, size, size, 3), np.uint8)
         return Sample(
-            video=np.zeros((self.cfg.n_frms, size, size, 3), np.uint8),
+            video=vid,
             audio=np.zeros(self.audio_num_samples, np.int16),
             timestamps=np.zeros(self.cfg.n_frms, np.int32),
             duration=ann["duration"],
@@ -153,9 +159,9 @@ class MRDataset:
         # and safe under BatchLoader's thread pool.
         rng = np.random.default_rng((self._seed, self.epoch, index))
         indices = sample_frame_indices(vlen, self.cfg.n_frms, self.sampling, rng=rng)
-        frames = self.video_source.get_batch(
-            path, indices, self.cfg.image_size, self.cfg.image_size, start, end,
-        )
+        get = (self.video_source.get_batch_i420 if self.cfg.video_wire == "yuv420"
+               else self.video_source.get_batch)
+        frames = get(path, indices, self.cfg.image_size, self.cfg.image_size, start, end)
         waveform = self.audio_source.load(
             path, self.audio_num_samples, self.cfg.audio.sampling_rate
         )

@@ -78,6 +78,7 @@ def load():
             ctypes.c_double, ctypes.c_double,
             ctypes.POINTER(ctypes.c_ubyte),
         ]
+        lib.mr_decode_frames_i420.argtypes = lib.mr_decode_frames.argtypes
         lib.mr_decode_audio.restype = ctypes.c_longlong
         lib.mr_decode_audio.argtypes = [
             ctypes.c_char_p, ctypes.c_int,
@@ -120,6 +121,26 @@ def decode_frames(
     indices = np.ascontiguousarray(indices, dtype=np.int64)
     out = np.empty((len(indices), height, width, 3), dtype=np.uint8)
     rc = lib.mr_decode_frames(
+        path.encode(),
+        indices.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
+        len(indices), height, width, start, end,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)),
+    )
+    if rc != 0:
+        raise IOError(f"decode failed for {path}: {_err(lib)}")
+    return out
+
+
+def decode_frames_i420(
+    lib, path: str, indices: np.ndarray, height: int, width: int,
+    start: float = -1.0, end: float = -1.0,
+) -> np.ndarray:
+    """Like :func:`decode_frames` but the codec's I420 planes packed as
+    (T, H*3//2, W) uint8, with no RGB conversion (``ops/image.py``
+    rebuilds RGB on the device)."""
+    indices = np.ascontiguousarray(indices, dtype=np.int64)
+    out = np.empty((len(indices), height * 3 // 2, width), dtype=np.uint8)
+    rc = lib.mr_decode_frames_i420(
         path.encode(),
         indices.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
         len(indices), height, width, start, end,

@@ -1,5 +1,6 @@
-"""Video frame sources, all returning uint8 (T, H, W, 3) frames;
-normalization happens on the device (``ops/image.py``).
+"""Video frame sources, all returning uint8 (T, H, W, 3) frames, or with
+``get_batch_i420`` the I420 wire layout (T, H*3//2, W); normalization
+happens on the device (``ops/image.py``).
 
 * :class:`NativeVideoSource`: the libav decoder of ``native/`` (bound by
   ``data/native_bindings.py``): seekable decode, fps/frame-count probe,
@@ -7,8 +8,6 @@ normalization happens on the device (``ops/image.py``).
 * :class:`SyntheticVideoSource`: procedural frames keyed on the path
   hash (tests, chip runs: no video corpus ships with the repo);
 * :class:`NpyVideoSource`: pre-extracted ``.npy`` frame stacks.
-
-The I420 wire format (``get_batch_i420``) is not ported.
 """
 
 from __future__ import annotations
@@ -41,7 +40,12 @@ class VideoSource:
         raise NotImplementedError
 
     def get_batch_i420(self, path, indices, height, width, start=None, end=None):
-        raise NotImplementedError("the yuv420 wire format is not ported yet")
+        """Like :meth:`get_batch` in the I420 wire layout (T, H*3//2, W)
+        uint8 (``video_wire="yuv420"``): the RGB decode packed on the
+        host; the native source copies the codec planes instead."""
+        from mraudio_tpu_torch.ops.image import rgb_to_yuv420
+
+        return rgb_to_yuv420(self.get_batch(path, indices, height, width, start, end))
 
 
 class SyntheticVideoSource(VideoSource):
@@ -125,6 +129,15 @@ class NativeVideoSource(VideoSource):
         from mraudio_tpu_torch.data import native_bindings
 
         return native_bindings.decode_frames(
+            self._lib, path, np.asarray(indices, dtype=np.int64), height, width,
+            start if start is not None else -1.0,
+            end if end is not None else -1.0,
+        )
+
+    def get_batch_i420(self, path, indices, height, width, start=None, end=None):
+        from mraudio_tpu_torch.data import native_bindings
+
+        return native_bindings.decode_frames_i420(
             self._lib, path, np.asarray(indices, dtype=np.int64), height, width,
             start if start is not None else -1.0,
             end if end is not None else -1.0,

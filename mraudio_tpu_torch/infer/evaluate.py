@@ -41,7 +41,7 @@ from mraudio_tpu_torch.utils.profiling import StageTimes, profile_to
 logger = logging.getLogger("mraudio_tpu_torch")
 
 _STAT_KEYS = ("prefix_len", "encode_s", "prefill_s", "prefill_segments", "decode_s",
-              "decode_steps")
+              "decode_steps", "decode_tokens")
 # RunConfig's paths to converted weights and the tokenizer: the port cannot
 # load them, so a config that names one is refused, never run at random
 _WEIGHT_FIELDS = ("llm_weights", "vit_weights", "beats_weights", "video_qformer_weights",

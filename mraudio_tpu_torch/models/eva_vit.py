@@ -2,8 +2,13 @@
 absolute position embeddings, pre-norm blocks with qkv bias, no final
 norm (the assembly applies ``video_ln``).  224² → 257 tokens × 1408.
 
-Only the ``keyframe_interval=1`` path (every frame through the full
-transformer) is ported.
+With ``keyframe_interval > 1`` and clips of ``n_frms`` frames (the
+temporal-residual encoder, an approximation): every
+``keyframe_interval``-th frame runs the full transformer; each other
+frame runs it on its class token and its ``residual_tokens`` patches
+that changed most against its keyframe (summed squared difference of
+the patch embeddings), and those outputs overwrite the keyframe's
+features at the same positions.
 """
 
 from __future__ import annotations
@@ -44,8 +49,6 @@ class ViTBlock(nn.Module):
 class EvaViT(nn.Module):
     def __init__(self, cfg: ViTConfig):
         super().__init__()
-        if cfg.keyframe_interval != 1:
-            raise NotImplementedError("temporal-residual ViT is not ported yet")
         self.cfg = cfg
         self.dtype = torch_dtype(cfg.dtype)
         p = cfg.patch_size
@@ -55,22 +58,71 @@ class EvaViT(nn.Module):
         self.pos_embed = _empty(1, cfg.seq_len, cfg.width)
         self.blocks = nn.ModuleList(ViTBlock(cfg, self.dtype) for _ in range(cfg.depth))
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """images: (N, H, W, 3) normalized → (N, seq_len, width)."""
+    def forward(self, images: torch.Tensor, n_frms: int | None = None) -> torch.Tensor:
+        """images: (N, H, W, 3) normalized → (N, seq_len, width).  With
+        ``n_frms`` the N images are N / n_frms clips of n_frms frames, and
+        ``keyframe_interval > 1`` takes the temporal-residual path."""
         cfg, dt = self.cfg, self.dtype
         n, h, w, c = images.shape
         p = cfg.patch_size
         gh, gw = h // p, w // p
+        num_patches = gh * gw
         # (gh, gw, p, p, c) patch order: one GEMM over p·p·3 features
         patches = images.reshape(n, gh, p, gw, p, c).permute(0, 1, 3, 2, 4, 5)
-        patches = patches.reshape(n, gh * gw, p * p * c)
+        patches = patches.reshape(n, num_patches, p * p * c)
         x = self.patch_embed(patches.to(dt))
         pos = self.pos_embed
+        patch_pos = (pos[:, 1:] if cfg.use_class_token else pos).to(dt)
+
+        def with_cls(tokens):
+            if not cfg.use_class_token:
+                return tokens
+            c0 = self.cls_token.expand(tokens.shape[0], 1, cfg.width).to(dt) + pos[:, :1].to(dt)
+            return torch.cat([c0, tokens], dim=1)
+
+        def run(tokens):
+            for blk in self.blocks:
+                tokens = blk(tokens)
+            return tokens
+
+        if not (cfg.keyframe_interval > 1 and n_frms is not None and n_frms > 1):
+            return run(with_cls(x + patch_pos))
+
+        t, k_int = n_frms, cfg.keyframe_interval
+        b = n // t
+        r = min(cfg.residual_tokens, num_patches)
+        key_idx = list(range(0, t, k_int))
+        nn_idx = [i for i in range(t) if i % k_int]
+        nk, nn_ = len(key_idx), len(nn_idx)
+        emb = x.reshape(b, t, num_patches, cfg.width)
+        key_out = run(with_cls(emb[:, key_idx].reshape(b * nk, num_patches, cfg.width)
+                               + patch_pos))
+        seq_len = key_out.shape[1]
+        key_out = key_out.reshape(b, nk, seq_len, cfg.width)
+        if nn_ == 0:
+            return key_out.reshape(b * nk, seq_len, cfg.width)
+
+        # non-key frames: the R patches that changed most against their
+        # keyframe; a stable descending sort takes tied patches lowest
+        # index first, as jax.lax.top_k does
+        prev_key = [i // k_int for i in nn_idx]                       # index on the key axis
+        nn_emb = emb[:, nn_idx]                                       # (B, nn, P, D)
+        ref_emb = emb[:, [key_idx[j] for j in prev_key]]
+        diff = (nn_emb.float() - ref_emb.float()).square().sum(dim=-1)       # (B, nn, P)
+        idx = torch.sort(diff, dim=-1, descending=True, stable=True).indices[..., :r]
+        gather = idx[..., None].expand(-1, -1, -1, cfg.width)         # (B, nn, R, D)
+        sel = nn_emb.gather(2, gather) + patch_pos[0][idx]
+        sub_out = run(with_cls(sel.reshape(b * nn_, r, cfg.width)))
+        sub_out = sub_out.reshape(b, nn_, sub_out.shape[1], cfg.width)
+
+        # non-key frames take their keyframe's tokens, overwritten at the
+        # recomputed patches (and with their own class token)
+        nn_out = key_out[:, prev_key].clone()                         # (B, nn, L, D)
+        off = 1 if cfg.use_class_token else 0
         if cfg.use_class_token:
-            c0 = self.cls_token.expand(n, 1, cfg.width).to(dt) + pos[:, :1].to(dt)
-            x = torch.cat([c0, x + pos[:, 1:].to(dt)], dim=1)
-        else:
-            x = x + pos.to(dt)
-        for blk in self.blocks:
-            x = blk(x)
-        return x
+            nn_out[:, :, 0] = sub_out[:, :, 0]
+        nn_out.scatter_(2, gather + off, sub_out[:, :, off:])
+        out = key_out.new_zeros((b, t, seq_len, cfg.width))
+        out[:, key_idx] = key_out
+        out[:, nn_idx] = nn_out
+        return out.reshape(b * t, seq_len, cfg.width)

@@ -20,6 +20,21 @@ from torch import nn
 # representable in bf16 and f32, and exp(NEG_INF - m) underflows to 0.
 NEG_INF = -1e30
 
+# Decode-shaped calls (a decode step's B rows, a speculative pass's B·W):
+# on CUDA, row reductions and plain matmuls of fewer rows run padded to
+# this many.  torch and cuBLAS lay out their work by the number of rows,
+# so a row's bits could otherwise change with the rows beside it, and a
+# speculative pass would not reproduce the one-token steps' tokens.
+DECODE_ROWS = 32
+
+
+def pad_rows(x2: torch.Tensor) -> torch.Tensor:
+    """A 2-D CUDA tensor of fewer than :data:`DECODE_ROWS` rows, padded
+    with zero rows to that many; anything else as it is."""
+    if x2.is_cuda and x2.shape[0] < DECODE_ROWS:
+        return F.pad(x2, (0, 0, 0, DECODE_ROWS - x2.shape[0]))
+    return x2
+
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf-based) GELU."""
@@ -85,8 +100,9 @@ class RMSNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
-        var = xf.square().mean(dim=-1, keepdim=True)
-        y = xf * torch.rsqrt(var + self.eps)
+        flat = xf.reshape(-1, xf.shape[-1])
+        var = pad_rows(flat).square().mean(dim=-1, keepdim=True)[:flat.shape[0]]
+        y = xf * torch.rsqrt(var.reshape(xf.shape[:-1] + (1,)) + self.eps)
         return (y * self.scale.float()).to(x.dtype)
 
 

@@ -7,14 +7,17 @@ The main-path subset of the JAX package's decoder:
   decode-shaped calls (<= 32 rows) go through the order-preserving GEMV
   kernel when ``cfg.decode_gemv == "pallas"``;
 * an int8 KV cache (per-(row, position, head) absmax, scales stored
-  (B, kv_heads, KV)), written in place — the port owns its cache buffers;
+  (B, kv_heads, KV)), written in place — the port owns its cache buffers.
+  ``cache_index`` is an int (every row writes columns ``[i, i + s)``) or
+  a (B,) tensor (row ``b`` writes ``[i_b, i_b + s)``: the speculative
+  decoders' per-row columns, one index write per (row, column));
 * multi-token causal calls through the plain ``chunked_attention`` over
   the cache as stored (``cfg.attention_impl == "chunked"``, the default),
   or through the flash-attention kernel over the dequantized cache
   (``"pallas"``) when the queries start at column 0, i.e. a one-shot
-  prefill or a segmented prefill's first segment; later segments take
-  ``chunked_attention`` as in the reference; one-token decode steps go
-  through the plain int8 decode attention;
+  prefill or a segmented prefill's first segment; later segments, per-row
+  calls (``q_abs``) and one-token steps over the int8 cache take
+  ``chunked_attention`` as in the reference;
 * f32 logits with padded vocab columns at ``finfo(f32).min``.
 """
 
@@ -29,8 +32,8 @@ from torch import nn
 
 from mraudio_tpu_torch.config import LlamaConfig, LoraConfig
 from mraudio_tpu_torch.device import torch_dtype
-from mraudio_tpu_torch.models.layers import NEG_INF, Embed, RMSNorm, _empty
-from mraudio_tpu_torch.ops.attention import chunked_attention, decode_attention, flash_attention
+from mraudio_tpu_torch.models.layers import DECODE_ROWS, NEG_INF, Embed, RMSNorm, _empty, pad_rows
+from mraudio_tpu_torch.ops.attention import chunked_attention, flash_attention
 from mraudio_tpu_torch.ops.gemv import decode_gemv, supports
 
 
@@ -62,11 +65,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(..., K) @ (K, N) with f32 accumulation, f32 result.  On CUDA the
-    operands stay in their dtype (``torch.mm`` with ``out_dtype``); the
-    CPU has no such kernel and takes the same math in f32."""
+    operands stay in their dtype (``torch.mm`` with ``out_dtype``), and a
+    decode-shaped call runs at one row count (``pad_rows``).  The CPU has
+    no such kernel and takes the same math in f32."""
     x2 = x.reshape(-1, x.shape[-1])
+    m = x2.shape[0]
     if x2.is_cuda:
-        y = torch.mm(x2, w, out_dtype=torch.float32)
+        y = torch.mm(pad_rows(x2), w, out_dtype=torch.float32)[:m]
     else:
         y = x2.float() @ w.float()
     return y.reshape(x.shape[:-1] + (w.shape[-1],))
@@ -104,7 +109,7 @@ class LlamaLinear(nn.Module):
         """Decode-shaped calls (<= 32 rows) take the GEMV kernel when
         configured and the dims tile."""
         return (self.cfg.decode_gemv == "pallas"
-                and math.prod(x.shape[:-1]) <= 32
+                and math.prod(x.shape[:-1]) <= DECODE_ROWS
                 and supports(self.in_features, self.features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -157,26 +162,43 @@ class LlamaAttention(nn.Module):
         k = apply_rope(self.k_proj(x).view(b, s, kv_h, d), positions, cfg.rope_theta)
         v = self.v_proj(x).view(b, s, kv_h, d)
 
+        per_row = cache is not None and not isinstance(cache_index, int)
         quantized = False
         k_scale = v_scale = None
         if cache is not None:
-            if not isinstance(cache_index, int):
-                raise NotImplementedError("per-row cache columns are not ported yet")
-            c0, c1 = cache_index, cache_index + s
             quantized = "k_scale" in cache
+            if per_row:
+                # row b's s tokens land at columns [i_b, i_b + s), which are
+                # also their causal positions; one write per (row, column)
+                rows = torch.arange(b, device=x.device)[:, None]
+                q_cols = cache_index[:, None] + torch.arange(s, device=x.device)[None, :]
+
+                def write(name, val):
+                    cache[name][rows, q_cols] = val.to(cache[name].dtype)
+
+                def write_scale(name, val):     # (B, s, kv_h) into (B, kv_h, KV)
+                    cache[name][rows, :, q_cols] = val
+            else:
+                c0, c1 = cache_index, cache_index + s
+
+                def write(name, val):
+                    cache[name][:, c0:c1] = val.to(cache[name].dtype)
+
+                def write_scale(name, val):
+                    cache[name][:, :, c0:c1] = val.transpose(1, 2)
             if quantized:
                 kq, ks = quantize_kv(k)
                 vq, vs = quantize_kv(v)
-                cache["k"][:, c0:c1] = kq
-                cache["v"][:, c0:c1] = vq
-                cache["k_scale"][:, :, c0:c1] = ks.transpose(1, 2)
-                cache["v_scale"][:, :, c0:c1] = vs.transpose(1, 2)
+                write("k", kq)
+                write("v", vq)
+                write_scale("k_scale", ks)
+                write_scale("v_scale", vs)
                 k_scale, v_scale = cache["k_scale"], cache["v_scale"]
             else:
-                cache["k"][:, c0:c1] = k.to(cache["k"].dtype)
-                cache["v"][:, c0:c1] = v.to(cache["v"].dtype)
+                write("k", k)
+                write("v", v)
             k_full, v_full = cache["k"], cache["v"]
-            q_offset = cache_index
+            q_offset = 0 if per_row else cache_index
         else:
             k_full, v_full = k, v
             q_offset = 0
@@ -191,16 +213,13 @@ class LlamaAttention(nn.Module):
 
         streaming = (cfg.attention_impl in ("chunked", "pallas") and kv_valid is not None
                      and ((s > 1 and causal) or (s == 1 and quantized)))
-        if streaming and s == 1:
-            # one-token step over the int8 cache (the reference's XLA route)
-            out = decode_attention(q, k_full, v_full, kv_valid, k_scale, v_scale)
-        elif streaming and (cfg.attention_impl == "chunked" or q_offset):
+        if streaming and (cfg.attention_impl == "chunked" or q_offset or per_row or s == 1):
             # the reference's XLA route; the flash kernel takes only
-            # queries that start at column 0, so later prefill segments
-            # come here too
+            # multi-token queries that start at column 0
             scales = dict(k_scale=k_scale, v_scale=v_scale, scales_bhs=True) if quantized else {}
+            where = dict(q_abs=q_cols) if per_row else dict(q_offset=q_offset)
             out = chunked_attention(q, k_full, v_full, kv_valid, causal=True, kv_bshd=True,
-                                    q_bshd=True, q_offset=q_offset, **scales)
+                                    q_bshd=True, **where, **scales)
         elif streaming:
             if quantized:
                 # the flash kernel takes bf16 K/V: dequantize the cache once

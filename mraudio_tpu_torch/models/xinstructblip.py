@@ -8,9 +8,10 @@ positions make it equivalent to dynamic padding).  Frames and audio
 chunks fold into the batch axis; ``encode_clips_per_pass`` clips go
 through the encoders per pass.
 
-Not ported yet (raise ``NotImplementedError``): grammar-constrained and
-lookup-speculative decoding, the saliency head, the yuv420 wire format,
-training.
+The decoder is greedy, grammar-constrained with forced-token speculation
+(``constrained_decoding``) or lookup self-speculation (``lookup_spec``);
+video arrives as RGB or on the yuv420 wire (``video_wire``).  Not ported
+yet (raise ``NotImplementedError``): the saliency head, training.
 """
 
 from __future__ import annotations
@@ -26,14 +27,14 @@ from torch.profiler import record_function
 
 from mraudio_tpu_torch.config import AudioFrontendConfig, XInstructBLIPConfig
 from mraudio_tpu_torch.device import resolve_device, torch_dtype
-from mraudio_tpu_torch.infer.generate import greedy_generate
+from mraudio_tpu_torch.infer.generate import grammar_generate, greedy_generate, lookup_generate
 from mraudio_tpu_torch.models.beats import BeatsEncoder
 from mraudio_tpu_torch.models.eva_vit import EvaViT
 from mraudio_tpu_torch.models.layers import Dense, LayerNormFp32, _empty
 from mraudio_tpu_torch.models.llama import LlamaModel
 from mraudio_tpu_torch.models.qformer import QFormer
 from mraudio_tpu_torch.ops.fbank import beats_frontend
-from mraudio_tpu_torch.ops.image import normalize_frames
+from mraudio_tpu_torch.ops.image import normalize_frames, rgb_to_yuv420, yuv420_to_rgb
 from mraudio_tpu_torch.text.prompts import MODALITY_CUES
 from mraudio_tpu_torch.text.tokenizer import ByteTokenizer
 
@@ -94,7 +95,7 @@ class GenerateBatch:
     """What ``generate`` reads from a batch (the JAX package's data
     ``Batch`` has the same fields)."""
 
-    video: np.ndarray             # (B, T, H, W, 3) uint8
+    video: np.ndarray             # (B, T, H, W, 3) uint8, or (B, T, H*3//2, W) I420
     audio: np.ndarray             # (B, N) int16 (or float in [-1, 1])
     timestamps: np.ndarray        # (B, T) int seconds
     duration: list
@@ -111,12 +112,8 @@ class XInstructBLIP(nn.Module):
         unknown = [m for m in cfg.modalities if m not in ("audio", "video")]
         if unknown:
             raise ValueError(f"modalities {unknown} have no code path; use audio/video")
-        for flag, on in (("constrained_decoding", cfg.constrained_decoding),
-                         ("lookup_spec", cfg.lookup_spec >= 2),
-                         ("saliency_head", cfg.saliency_head),
-                         ("video_wire", cfg.video_wire != "rgb")):
-            if on:
-                raise NotImplementedError(f"XInstructBLIPConfig.{flag} is not ported yet")
+        if cfg.saliency_head:
+            raise NotImplementedError("XInstructBLIPConfig.saliency_head is not ported yet")
         self.cfg = cfg
         self.audio_cfg = audio_cfg or AudioFrontendConfig()
         self.llm_tokenizer = llm_tokenizer or ByteTokenizer(cfg.llm.vocab_size)
@@ -213,10 +210,14 @@ class XInstructBLIP(nn.Module):
         out = {}
         if "video" in cfg.modalities:
             b, t = video_u8.shape[:2]
+            if cfg.video_wire == "yuv420":
+                video_u8 = yuv420_to_rgb(video_u8)     # the I420 wire → f32 RGB
             frames = normalize_frames(video_u8, dtype=torch_dtype(cfg.vit.dtype))
             folded = frames.reshape((b * t,) + frames.shape[2:])
+            # the temporal-residual ViT needs whole clips in each pass
             per = self._frames_per_pass(b, t, cfg.vit.keyframe_interval == 1)
-            feats = torch.cat([self.vit(folded[i:i + per]) for i in range(0, b * t, per)])
+            feats = torch.cat([self.vit(folded[i:i + per], n_frms=t)
+                               for i in range(0, b * t, per)])
             feats = self.video_ln(feats)
             out["video"] = self._qformer_project("video", feats, b, t, qformer_ids, qformer_mask)
         if "audio" in cfg.modalities:
@@ -285,11 +286,69 @@ class XInstructBLIP(nn.Module):
     # Public entry points
     # ------------------------------------------------------------------
 
+    def _wire_video(self, video) -> np.ndarray:
+        """The configured host→device wire: with ``video_wire="yuv420"`` a
+        5-D RGB array is packed to I420 here; a 4-D array is already
+        packed (the dataset's ``video_wire="yuv420"``)."""
+        video = np.asarray(video)
+        if self.cfg.video_wire == "yuv420" and video.ndim == 5:
+            return rgb_to_yuv420(video)
+        return video
+
     def device_inputs(self, batch) -> tuple:
-        """Copy the batch's video and audio arrays to the device."""
+        """Copy the batch's video (on the configured wire) and audio arrays
+        to the device."""
         dev = self.device
-        return (torch.from_numpy(np.asarray(batch.video)).to(dev, non_blocking=True),
+        return (torch.from_numpy(self._wire_video(batch.video)).to(dev, non_blocking=True),
                 torch.from_numpy(np.asarray(batch.audio)).to(dev, non_blocking=True))
+
+    def _grammar_arrays(self) -> dict:
+        """The span grammar's tables (``text/grammar.py``) against the LLM
+        tokenizer, on the device, compiled once.  Float windows only for
+        the float time formats.  The tables are widened to the padded
+        vocabulary: pad ids are never allowed."""
+        if getattr(self, "_grammar_cache", None) is None:
+            from mraudio_tpu_torch.text.grammar import compile_grammar
+
+            tables = compile_grammar(
+                self.llm_tokenizer,
+                allow_float=self.cfg.time_format in ("seconds_floats", "relative_floats"))
+            allowed, next_state, dist_next = tables.allowed, tables.next_state, tables.dist_next
+            pv = self.cfg.llm.padded_vocab_size
+            if pv > allowed.shape[1]:
+                pad = ((0, 0), (0, pv - allowed.shape[1]))
+                allowed = np.pad(allowed, pad)
+                next_state = np.pad(next_state, pad)
+                dist_next = np.pad(dist_next, pad, constant_values=np.iinfo(np.int32).max // 2)
+            self._grammar_cache = {
+                name: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                for name, a in (("allowed", allowed), ("next_state", next_state),
+                                ("forced", tables.forced), ("dist_next", dist_next))}
+        return self._grammar_cache
+
+    def _decode(self, embeds, mask, text: TextBatch, stats: dict | None):
+        """The configured decoder over the prefix: grammar-constrained,
+        lookup-speculative (hints: the batch's timestamp, duration and
+        prompt ids) or greedy."""
+        cfg = self.cfg
+        eos = self.llm_tokenizer.eos_token_id
+        if cfg.constrained_decoding:
+            g = self._grammar_arrays()
+            return grammar_generate(self.llm, embeds, mask, cfg.max_new_tokens, eos,
+                                    g["allowed"], g["next_state"], g["forced"], g["dist_next"],
+                                    spec_width=cfg.spec_width, stats=stats)
+        if cfg.lookup_spec >= 2:
+            b = text.prompt_ids.shape[0]
+            hint_ids = np.concatenate([text.ts_ids.reshape(b, -1), text.dur_ids,
+                                       text.prompt_ids], axis=1)
+            hint_mask = np.concatenate([text.ts_mask.reshape(b, -1), text.dur_mask,
+                                        text.prompt_mask], axis=1)
+            return lookup_generate(self.llm, embeds, mask, cfg.max_new_tokens, eos,
+                                   spec_width=cfg.lookup_spec,
+                                   hint_ids=torch.from_numpy(hint_ids).to(self.device),
+                                   hint_mask=torch.from_numpy(hint_mask).to(self.device),
+                                   stats=stats)
+        return greedy_generate(self.llm, embeds, mask, cfg.max_new_tokens, eos, stats=stats)
 
     @torch.inference_mode()
     def generate_submit(self, params=None, batch=None, device_inputs=None,
@@ -297,7 +356,7 @@ class XInstructBLIP(nn.Module):
         """Run preprocessing, encoders, interleave, prefill and the decode
         loop; returns ``(tokens (B, max_new_tokens), None)`` on the
         device.  ``stats``, if given, receives ``encode_s`` and
-        ``prefix_len`` plus what ``greedy_generate`` records; the
+        ``prefix_len`` plus what the decoder records; the
         encoding runs inside a profiler span named ``encode``.  ``params`` is accepted for signature parity with the
         JAX package and must be None: the weights live in the module."""
         if params is not None:
@@ -314,9 +373,7 @@ class XInstructBLIP(nn.Module):
                     torch.cuda.synchronize(embeds.device)
                 stats["encode_s"] = time.perf_counter() - t0
                 stats["prefix_len"] = embeds.shape[1]
-        tokens = greedy_generate(self.llm, embeds, mask, self.cfg.max_new_tokens,
-                                 self.llm_tokenizer.eos_token_id, stats=stats)
-        return tokens, None
+        return self._decode(embeds, mask, text, stats), None
 
     def generate_finalize(self, pending, return_saliency: bool = False):
         """Decode a :meth:`generate_submit` result to strings."""
@@ -330,7 +387,7 @@ class XInstructBLIP(nn.Module):
 
     def generate(self, params=None, batch=None, device_inputs=None,
                  return_saliency: bool = False, stats: dict | None = None):
-        """Batched greedy span generation → decoded strings."""
+        """Batched span generation → decoded strings."""
         return self.generate_finalize(
             self.generate_submit(params, batch, device_inputs, stats=stats),
             return_saliency=return_saliency,

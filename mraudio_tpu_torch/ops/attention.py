@@ -1,5 +1,5 @@
 """Attention ops for the decoder: the flash-attention prefill kernel with
-its plain version, and the plain int8-KV decode attention.
+its plain version, and the plain ``chunked_attention``.
 
 ``flash_attention`` replaces the TPU kernel
 ``mraudio_tpu/ops/attention.py::flash_attention`` (``_flash_kernel``).
@@ -9,14 +9,12 @@ products on wgmma, f32 online softmax in registers, see the source); on
 CPU tensors it runs :func:`flash_attention_plain`, which computes the
 same function.
 
-``decode_attention`` is the one-token step over the int8 KV cache.  The
-JAX package runs it through XLA (``chunked_attention`` with the decode
-route's flags), so it stays plain PyTorch here.
-
 ``chunked_attention`` is the reference's XLA online-softmax attention
 (``mraudio_tpu/ops/attention.py::chunked_attention``), plain PyTorch
 here too: the multi-token route of the default configuration
-(``attention_impl="chunked"``) and every prefill segment after the first.
+(``attention_impl="chunked"``), every prefill segment after the first,
+every one-token decode step over the int8 cache and every speculative
+pass (per-row columns, ``q_abs``).
 """
 
 from __future__ import annotations
@@ -63,6 +61,7 @@ def flash_attention_plain(q, k, v, mask, causal: bool = True,
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _KV_TILE = 128          # keys per kernel tile; the byte mask is padded to a multiple of it
+_SMALL_TILE = 16        # chunked_attention's tiles of at most this many queries take one pass
 
 
 def _strides(t: torch.Tensor):
@@ -121,7 +120,7 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def chunked_attention(q, k, v, mask, causal: bool = True, block_k: int = 512,
                       block_q: int = 512, k_scale=None, v_scale=None, kv_bshd: bool = False,
-                      q_bshd: bool = False, q_offset: int = 0,
+                      q_bshd: bool = False, q_offset: int = 0, q_abs=None,
                       scales_bhs: bool = False) -> torch.Tensor:
     """Online-softmax attention over ``block_q`` query tiles and
     ``block_k`` key chunks, with the reference's contract:
@@ -129,21 +128,32 @@ def chunked_attention(q, k, v, mask, causal: bool = True, block_k: int = 512,
     * q (B, H, S, D), or (B, S, H, D) with ``q_bshd`` (the output follows
       q's layout); k/v (B, H, KV, D), or the cache's (B, KV, H, D) with
       ``kv_bshd``; mask (B, KV) {0,1};
-    * int8 K/V with ``k_scale``/``v_scale``: each tile is converted to q's
-      dtype, K's scale multiplies the f32 logits and V's the probabilities
-      before their cast for p·v.  Scales follow k's layout, or are
-      (B, H, KV) with ``scales_bhs``;
-    * ``q_offset``: the cache column of query 0 (a prefill segment);
+    * int8 K/V with ``k_scale``/``v_scale``: key columns are converted to
+      q's dtype, K's scale multiplies the f32 logits and V's the
+      probabilities before their cast for p·v.  Scales follow k's layout,
+      or are (B, H, KV) with ``scales_bhs``;
+    * the causal position of a query is its cache column: ``q_offset`` +
+      its index (a prefill segment, a one-token decode step), or, with
+      ``q_abs`` (B, S), a column per row (a speculative pass, whose rows
+      stand at different columns);
     * per tile: the full chunks in ascending order, then the ragged tail,
       which re-reads the last ``block_k`` rows with the rows the full
-      chunks covered masked out.  Chunks wholly above the causal diagonal
-      are skipped, which is exact (a fully masked chunk changes nothing);
-      so a segment whose ``q_offset`` is a multiple of ``block_q`` gives
-      the bits of the same rows of the one-shot call;
+      chunks covered masked out.  With ``q_offset``, chunks wholly above
+      the causal diagonal are skipped, which is exact (a fully masked
+      chunk changes nothing); so a segment whose ``q_offset`` is a
+      multiple of ``block_q`` gives the bits of the same rows of the
+      one-shot call.  ``q_abs`` visits every chunk;
+    * a tile of at most 16 queries (a decode step, a speculative pass)
+      takes every key column in one pass instead — the same function; a
+      chunk loop over so few queries is bound by its launches — with its
+      rows padded to 16 that attend nothing and are dropped.  A tile's
+      arithmetic then depends neither on how many queries share it nor on
+      which route (``q_offset`` or ``q_abs``) gives their columns;
     * masked probabilities are exactly 0 and fully masked rows give 0.
 
     Both products take operands in q's dtype with f32 accumulation.  No
-    (B, H, S, KV) tensor and no whole-cache conversion is made."""
+    (B, H, S, KV) tensor is made, and a whole-cache conversion only for a
+    tile of at most 16 queries."""
     if q_bshd:
         b, s, h, d = q.shape
     else:
@@ -158,6 +168,9 @@ def chunked_attention(q, k, v, mask, causal: bool = True, block_k: int = 512,
     def heads_major(t):           # a (B, KV-slice, H, ...) slice → (B, H, ...)
         return t.transpose(1, 2) if kv_bshd else t
 
+    def scales_bhk(t):            # a scale slice → (B, H, KV-slice)
+        return t.transpose(1, 2) if kv_bshd and not scales_bhs else t
+
     def attend(carry, q_blk, q_pos, kv_start, blk, min_kv=0):
         acc, m_i, l_i = carry
         bq = q_blk.shape[2]
@@ -167,28 +180,46 @@ def chunked_attention(q, k, v, mask, causal: bool = True, block_k: int = 512,
                           k_blk.reshape(b * h, blk, d).transpose(1, 2)).view(b, h, bq, blk)
         logits = logits * scale
         if k_scale is not None:
-            ks = k_scale.narrow(sc_axis, kv_start, blk)
-            if kv_bshd and not scales_bhs:
-                ks = ks.transpose(1, 2)
-            logits = logits * ks[:, :, None, :]
+            logits = logits * scales_bhk(k_scale.narrow(sc_axis, kv_start, blk))[:, :, None, :]
         kv_pos = torch.arange(kv_start, kv_start + blk, device=dev)
         valid = mask[:, kv_start:kv_start + blk].bool()[:, None, None, :]
         if min_kv:
             valid = valid & (kv_pos >= min_kv)
         if causal:
-            valid = valid & (kv_pos[None, :] <= q_pos[:, None])
+            valid = valid & (kv_pos <= q_pos)
         logits = torch.where(valid, logits, NEG_INF)
         m_new = torch.maximum(m_i, logits.amax(dim=-1, keepdim=True))
         p = torch.where(valid, torch.exp(logits - m_new), 0.0)
         alpha = torch.exp(m_i - m_new)
         l_new = alpha * l_i + p.sum(dim=-1, keepdim=True)
         if v_scale is not None:
-            vs = v_scale.narrow(sc_axis, kv_start, blk)
-            if kv_bshd and not scales_bhs:
-                vs = vs.transpose(1, 2)
-            p = p * vs[:, :, None, :]
+            p = p * scales_bhk(v_scale.narrow(sc_axis, kv_start, blk))[:, :, None, :]
         pv = _bmm_f32(p.to(dtype).reshape(b * h, bq, blk), v_blk.reshape(b * h, blk, d))
         return acc * alpha + pv.view(b, h, bq, d), m_new, l_new
+
+    def one_pass(q_blk, q_pos):
+        """Every key column at once: one softmax over the whole cache."""
+        rows = q_blk.shape[2]
+        k_all = heads_major(k).to(dtype, memory_format=torch.contiguous_format)
+        v_all = heads_major(v).to(dtype, memory_format=torch.contiguous_format)
+        logits = _bmm_f32(q_blk.reshape(b * h, rows, d),
+                          k_all.reshape(b * h, kv_len, d).transpose(1, 2))
+        logits = logits.view(b, h, rows, kv_len) * scale
+        if k_scale is not None:
+            logits = logits * scales_bhk(k_scale)[:, :, None, :]
+        valid = mask.bool()[:, None, None, :]
+        if causal:
+            valid = valid & (torch.arange(kv_len, device=dev) <= q_pos)
+        logits = torch.where(valid, logits, NEG_INF)
+        p = torch.where(valid, torch.exp(logits - logits.amax(dim=-1, keepdim=True)), 0.0)
+        # a row sum over a length that is not a multiple of the vector
+        # width groups its terms by where the row starts in memory, i.e. by
+        # the query's place in the tile: sum over a padded length
+        l_i = torch.nn.functional.pad(p, (0, -kv_len % 16)).sum(dim=-1, keepdim=True)
+        if v_scale is not None:
+            p = p * scales_bhk(v_scale)[:, :, None, :]
+        acc = _bmm_f32(p.to(dtype).reshape(b * h, rows, kv_len), v_all.reshape(b * h, kv_len, d))
+        return acc.view(b, h, rows, d), l_i
 
     num_full = kv_len // block_k
     tail_len = kv_len - num_full * block_k
@@ -198,44 +229,35 @@ def chunked_attention(q, k, v, mask, causal: bool = True, block_k: int = 512,
     for qs in range(0, s, block_q):
         bq = min(block_q, s - qs)
         q_blk = q[:, qs:qs + bq].transpose(1, 2) if q_bshd else q[:, :, qs:qs + bq]
-        q_blk = q_blk.contiguous()
-        q_pos = torch.arange(q_offset + qs, q_offset + qs + bq, device=dev)
-        q_end = q_offset + qs + bq - 1
-        if causal:
-            nf = min((q_end + block_k) // block_k, num_full)
-            need_tail = tail_len > 0 and q_end >= num_full * block_k
-        else:
+        if q_abs is not None:
+            # per-row columns: no diagonal shared by the rows to skip at
+            q_pos = q_abs[:, qs:qs + bq].to(dev)                          # (B, bq)
             nf, need_tail = num_full, tail_len > 0
-        carry = (torch.zeros((b, h, bq, d), dtype=torch.float32, device=dev),
-                 torch.full((b, h, bq, 1), NEG_INF, dtype=torch.float32, device=dev),
-                 torch.zeros((b, h, bq, 1), dtype=torch.float32, device=dev))
-        for c in range(nf):
-            carry = attend(carry, q_blk, q_pos, c * block_k, block_k)
-        if need_tail or nf == 0:
-            carry = attend(carry, q_blk, q_pos, tail_start, tail_blk,
-                           min_kv=num_full * block_k if tail_start else 0)
-        acc, _, l_i = carry
+        else:
+            q_pos = torch.arange(q_offset + qs, q_offset + qs + bq, device=dev)[None]
+            q_end = q_offset + qs + bq - 1
+            if causal:
+                nf = min((q_end + block_k) // block_k, num_full)
+                need_tail = tail_len > 0 and q_end >= num_full * block_k
+            else:
+                nf, need_tail = num_full, tail_len > 0
+        if bq <= _SMALL_TILE:
+            # padding rows at column -1 fail every causal test
+            q_blk = torch.nn.functional.pad(q_blk, (0, 0, 0, _SMALL_TILE - bq))
+            q_pos = torch.nn.functional.pad(q_pos, (0, _SMALL_TILE - bq), value=-1)
+            acc, l_i = one_pass(q_blk.contiguous(), q_pos[:, None, :, None])
+        else:
+            q_blk, q_pos = q_blk.contiguous(), q_pos[:, None, :, None]    # (B|1, 1, bq, 1)
+            carry = (torch.zeros((b, h, bq, d), dtype=torch.float32, device=dev),
+                     torch.full((b, h, bq, 1), NEG_INF, dtype=torch.float32, device=dev),
+                     torch.zeros((b, h, bq, 1), dtype=torch.float32, device=dev))
+            for c in range(nf):
+                carry = attend(carry, q_blk, q_pos, c * block_k, block_k)
+            if need_tail or nf == 0:
+                carry = attend(carry, q_blk, q_pos, tail_start, tail_blk,
+                               min_kv=num_full * block_k if tail_start else 0)
+            acc, _, l_i = carry
+        acc, l_i = acc[:, :, :bq], l_i[:, :, :bq]
         out = (acc / torch.where(l_i == 0, 1.0, l_i)).to(dtype)
         tiles.append(out.transpose(1, 2) if q_bshd else out)
     return torch.cat(tiles, dim=1 if q_bshd else 2)
-
-
-def decode_attention(q, k, v, mask, k_scale, v_scale) -> torch.Tensor:
-    """One-position attention over the int8 KV cache (no causal mask).
-
-    q (B, S, H, D); k/v int8 (B, KV, H, D); mask (B, KV) {0,1}; scales
-    (B, H, KV) f32.  K's scale folds into the f32 logits and V's into the
-    probabilities before the p·v product, whose operands are the model
-    dtype with f32 accumulation.  Returns (B, S, H, D) in q's dtype."""
-    d = q.shape[-1]
-    dtype = q.dtype
-    logits = torch.einsum("bshd,bkhd->bhsk", q.float(), k.float()) * (1.0 / math.sqrt(d))
-    logits = logits * k_scale[:, :, None, :]
-    valid = mask[:, None, None, :].bool()
-    m = torch.where(valid, logits, NEG_INF).amax(dim=-1, keepdim=True)
-    p = torch.where(valid, torch.exp(logits - m), 0.0)
-    l = p.sum(dim=-1, keepdim=True)
-    p = p * v_scale[:, :, None, :]
-    out = torch.einsum("bhsk,bkhd->bhsd", p.to(dtype).float(), v.to(dtype).float())
-    out = (out / torch.where(l == 0, 1.0, l)).to(dtype)
-    return out.transpose(1, 2)

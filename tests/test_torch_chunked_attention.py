@@ -59,7 +59,8 @@ def _check(out, ref, dtype):
     assert np.all(np.abs(out - ref) <= limit), float(np.max(np.abs(out - ref) / limit))
 
 
-def _run_port(q, k, v, ks, vs, mask, dtype, layout, int8, causal, q_offset=0, scales_bhs=True):
+def _run_port(q, k, v, ks, vs, mask, dtype, layout, int8, causal, q_offset=0, scales_bhs=True,
+              block_q=BLOCK_Q):
     tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
     tq = torch.from_numpy(q).to(tdt)
     tk, tv = torch.from_numpy(k), torch.from_numpy(v)
@@ -72,14 +73,15 @@ def _run_port(q, k, v, ks, vs, mask, dtype, layout, int8, causal, q_offset=0, sc
         tq, tk, tv = (t.transpose(1, 2).contiguous() for t in (tq, tk, tv))
     extra = dict(k_scale=tks, v_scale=tvs, scales_bhs=scales_bhs) if int8 else {}
     out = chunked_attention(tq, tk, tv, torch.from_numpy(mask), causal=causal,
-                            block_k=BLOCK_K, block_q=BLOCK_Q, kv_bshd=layout == "bshd",
+                            block_k=BLOCK_K, block_q=block_q, kv_bshd=layout == "bshd",
                             q_bshd=layout == "bshd", q_offset=q_offset, **extra)
     if layout == "bhsd":
         out = out.transpose(1, 2)
     return out
 
 
-def _run_jax(q, k, v, ks, vs, mask, dtype, layout, int8, causal, q_offset=0, scales_bhs=True):
+def _run_jax(q, k, v, ks, vs, mask, dtype, layout, int8, causal, q_offset=0, scales_bhs=True,
+             block_q=BLOCK_Q):
     jq = jnp.asarray(q, dtype)
     jk, jv = (jnp.asarray(a) if int8 else jnp.asarray(a, dtype) for a in (k, v))
     jks, jvs = jnp.asarray(ks), jnp.asarray(vs)
@@ -89,7 +91,7 @@ def _run_jax(q, k, v, ks, vs, mask, dtype, layout, int8, causal, q_offset=0, sca
         jq, jk, jv = (a.transpose(0, 2, 1, 3) for a in (jq, jk, jv))
     extra = dict(k_scale=jks, v_scale=jvs, scales_bhs=scales_bhs) if int8 else {}
     out = j_chunked(jq, jk, jv, jnp.asarray(mask), causal=causal, block_k=BLOCK_K,
-                    block_q=BLOCK_Q, kv_bshd=layout == "bshd", q_bshd=layout == "bshd",
+                    block_q=block_q, kv_bshd=layout == "bshd", q_bshd=layout == "bshd",
                     q_offset=q_offset, **extra)
     if layout == "bhsd":
         out = out.transpose(0, 2, 1, 3)
@@ -127,6 +129,18 @@ def test_matches_jax(dtype, layout, int8, causal, s, kv, q_offset, scales_bhs):
     if causal and q_offset == 0:
         # query 0 of batch row 0 sees only a masked key: exactly 0
         assert bool((out[0, 0] == 0).all())
+
+
+@pytest.mark.parametrize("dtype,int8,causal,s,q_offset", [
+    ("float32", True, True, 40, 0), ("float32", False, False, 37, 0),
+    ("float32", True, True, 21, 24), ("bfloat16", True, True, 40, 0)])
+def test_chunk_loop_matches_jax(dtype, int8, causal, s, q_offset):
+    """Tiles of more than 16 queries (block_q = 32) take the chunk loop;
+    the cases above, at block_q = 8, take the one-pass route."""
+    args = _inputs(s, 46, int8, seed=1)
+    kw = dict(dtype=dtype, layout="bshd", int8=int8, causal=causal, q_offset=q_offset,
+              block_q=32)
+    _check(_run_port(*args, **kw).float().numpy(), _run_jax(*args, **kw), dtype)
 
 
 def test_fully_masked_batch_row_is_exactly_zero():

@@ -234,7 +234,7 @@ def test_scorer_matches_jax_on_real_windows_and_saliency():
 
 
 @pytest.mark.parametrize("flag", ["--model-path=x", "--audio-encoder=x", "--params-store=x",
-                                  "--checkpoint=x", "--fast", "--quant-encoders",
+                                  "--checkpoint=x", "--quant-encoders",
                                   "--seq-shard", "--model=VideoLLaMA"])
 def test_cli_unported_flags_raise(flag, tmp_path):
     gt = tmp_path / "gt.jsonl"

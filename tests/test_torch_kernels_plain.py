@@ -16,7 +16,7 @@ from mraudio_tpu.ops.attention import flash_attention as j_flash
 from mraudio_tpu.ops.gemv import decode_gemv as j_gemv
 from mraudio_tpu.ops.gemv import supports as j_supports
 from mraudio_tpu_torch.models.llama import quantize_kv
-from mraudio_tpu_torch.ops.attention import decode_attention, flash_attention
+from mraudio_tpu_torch.ops.attention import chunked_attention, flash_attention
 from mraudio_tpu_torch.ops.gemv import decode_gemv, supports
 
 torch.set_num_threads(1)
@@ -140,7 +140,11 @@ def test_decode_attention_matches_chunked_decode_route():
     tvq, tvs = quantize_kv(torch.from_numpy(v))
     np.testing.assert_array_equal(tkq.numpy(), np.asarray(kq))
     np.testing.assert_array_equal(tks.numpy(), np.asarray(ks))
-    out = decode_attention(torch.from_numpy(q), tkq, tvq, torch.from_numpy(mask),
-                           tks.transpose(1, 2), tvs.transpose(1, 2))
+    # the port's one-token decode step: chunked_attention with the query
+    # at the last cache column (causal, so every column is visible)
+    out = chunked_attention(torch.from_numpy(q), tkq, tvq, torch.from_numpy(mask), causal=True,
+                            q_offset=kv - 1, k_scale=tks.transpose(1, 2),
+                            v_scale=tvs.transpose(1, 2), kv_bshd=True, q_bshd=True,
+                            scales_bhs=True)
     assert out.shape == ref.shape
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)

@@ -136,7 +136,7 @@ def test_prefill_logits_bf16_within_tolerance():
                                atol=BF16_LOGIT_ATOL)
 
 
-@pytest.mark.parametrize("flag", ["constrained_decoding", "saliency_head"])
+@pytest.mark.parametrize("flag", ["saliency_head"])
 def test_unported_options_raise(flag):
     cfg = tiny_model_config().replace(**{flag: True})
     with pytest.raises(NotImplementedError):
