@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--only kernels,models,evaluate,serve]
 
 Phases, each printing one JSON line with its seconds:
 
@@ -18,7 +18,10 @@ Phases, each printing one JSON line with its seconds:
    shapes too, and the bits of its documented reduction order
    (``decode_gemv_in_order``); at M = 12 rows (a speculative pass: 3
    rows x 4 positions) it is timed too, and each row must give the bits
-   of the same row in an M = 3 launch.  Plain ops (no kernel: XLA in the
+   of the same row in an M = 3 launch; at M = 4 and 16 (the serving
+   engine's 4 slots, greedy and in a verify pass of 4 positions) it is
+   timed too, and the rows of an M = 16 launch must give the bits of
+   M = 4 launches.  Plain ops (no kernel: XLA in the
    reference) timed at their shapes: ``chunked_attention`` one-shot and
    as three prefill segments, whose output must be bit-identical, held
    against flash; its per-row route (``q_abs``: 3 rows of 4 queries at
@@ -58,7 +61,33 @@ Phases, each printing one JSON line with its seconds:
     its first batch once more under ``--profile-dir``, broken down as in 6;
 11. fast evaluate: the same with ``--fast`` (the yuv420 wire, the
     temporal-residual ViT, grammar decoding): 0 kernel launches and 0
-    invalid predictions asserted.
+    invalid predictions asserted;
+12. serve: the serve CLI in-process at full width in its default
+    configuration (4 slots, 1 step per dispatch, pipeline depth 2,
+    upfront encode) on 6 synthetic QVH requests, so that two slots are
+    reused: 6 records on the serve schema, 0 kernel launches, the stats
+    line and the peak memory;
+13. serve identities: 3 requests of the same model in-process; each
+    request's engine tokens must equal the offline ``greedy_generate`` at
+    batch 3, at pipeline depth 2 and 1, 2 steps per dispatch,
+    ``spec_width`` 4 with hints and with a fourth request cancelled mid-
+    decode; ``serve()`` must report its timeouts, and Poisson arrivals
+    must give the burst run's records; the depth-2 run is traced (device
+    idle share of the ``engine`` span);
+14. serve deployed: ``bench.py``'s serve profile through the CLI (4 slots,
+    ``--max-prefill-batch 2``, ``--kv-keep 1784``, 2 steps per dispatch,
+    inline encode in groups of 2 with one group prepared ahead) on 6
+    requests; then, for one admission, every layer's kept columns must be
+    the plain rule's selection from the card's own ``obs_score``, which
+    must lie within its limit of a dense f32 computation, and ``kv_keep``
+    above the prefix length must give the uncompacted tokens;
+15. serve slice: the engine in the slice configuration, greedy and at
+    ``spec_width`` 4: 32 flash launches per admission, 224 GEMV launches
+    per dispatch, identical tokens.
+
+``--only`` runs the named groups of phases (kernels: 3; models: 4-9;
+evaluate: 10-11; serve: 12-15) after the build, for debugging; such a
+run prints no summary and no ``ok`` line.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 the per-kernel summary ``{"kernels": [...]}``, and
@@ -320,7 +349,7 @@ def gemv_identity(x, w, scale, what: str) -> float:
                 over_one_ulp=int((err > _bf16_ulp(ref)).sum()))
 
 
-def check_gemv(dev, b, kdim, n, int8, gen, cold_bytes=160e6):
+def check_gemv(dev, b, kdim, n, int8, gen, cold_bytes=160e6, by_cluster: bool = True):
     from mraudio_tpu_torch.ops.gemv import (CLUSTERS, all_launch_settings, decode_gemv,
                                             decode_gemv_plain, launch_settings, reduction_order)
 
@@ -340,7 +369,7 @@ def check_gemv(dev, b, kdim, n, int8, gen, cold_bytes=160e6):
     ms = graph_ms(run(lambda wi: decode_gemv(x, wi, scale)))
     cluster0, rows0 = launch_settings(b, kdim, n, int8)
     cluster_ms = {c: graph_ms(run(lambda wi, c=c: decode_gemv(x, wi, scale, cluster=c, rows=rows0)))
-                  for c in CLUSTERS}
+                  for c in CLUSTERS} if by_cluster else None
     plain_ms = graph_ms(run(lambda wi: decode_gemv_plain(x, wi, scale)), calls=5)
     if int8:   # the library call reads pre-dequantized bf16 weights: 2x the bytes
         deq = [(wi.float() * scale).to(torch.bfloat16) for wi in ws[:max(1, copies // 2)]]
@@ -590,6 +619,11 @@ def check_chunked_attention(dev, b, h, s, kv, d, chunk, gen):
 # --------------------------------------------------------------------------
 
 
+QUERIES = ["a man in a red jacket talks to the camera on a busy street",
+           "two dogs chase a ball across the beach at sunset",
+           "a woman slices vegetables and adds them to a pan"]
+
+
 def qvh_batch(b: int, n_frms: int, image: int, seconds: float, rate: int, seed: int):
     from mraudio_tpu_torch.models.xinstructblip import GenerateBatch
     from mraudio_tpu_torch.text.prompts import build_query_prompt
@@ -602,15 +636,12 @@ def qvh_batch(b: int, n_frms: int, image: int, seconds: float, rate: int, seed: 
     audio = np.stack([
         (3000 * np.sin(2 * np.pi * (220 + 110 * i) * t)
          + rng.normal(0, 800, t.shape)).astype(np.int16) for i in range(b)])
-    queries = ["a man in a red jacket talks to the camera on a busy street",
-               "two dogs chase a ball across the beach at sunset",
-               "a woman slices vegetables and adds them to a pan"]
     return GenerateBatch(
         video=rng.integers(0, 256, (b, n_frms, image, image, 3), dtype=np.uint8),
         audio=audio,
         timestamps=stamps,
         duration=duration,
-        text_input=[build_query_prompt(queries[i % 3]) for i in range(b)],
+        text_input=[build_query_prompt(QUERIES[i % 3]) for i in range(b)],
     )
 
 
@@ -785,9 +816,10 @@ def profile_generate(model, batch, unprofiled: dict, top: int = 12) -> dict:
     return phase_breakdown(trace, unprofiled, top)
 
 
-def phase_breakdown(trace: Path, unprofiled: dict, top: int = 12) -> dict:
+def phase_breakdown(trace: Path, unprofiled: dict, top: int = 12,
+                    names=("encode", "prefill", "decode")) -> dict:
     """Read (and delete) a chrome trace of one ``generate``.  For each phase
-    span (``encode``, ``prefill``, ``decode``) on the host: the device time
+    span (``names``: ``encode``, ``prefill``, ``decode``) on the host: the device time
     of every kernel launched inside it, the union of those intervals
     (busy), and the idle share ``1 - busy / span``.  The profiler slows the
     host, so the idle share is also given against the unprofiled run's
@@ -795,8 +827,8 @@ def phase_breakdown(trace: Path, unprofiled: dict, top: int = 12) -> dict:
     events = json.loads(trace.read_text())["traceEvents"]
     trace.unlink()
     spans = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
-             if e.get("cat") == "user_annotation" and e.get("name") in ("encode", "prefill", "decode")}
-    if sorted(spans) != ["decode", "encode", "prefill"]:
+             if e.get("cat") == "user_annotation" and e.get("name") in names}
+    if sorted(spans) != sorted(names):
         raise AssertionError(f"profile: phase spans {sorted(spans)} in the trace")
     device = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
                     if e.get("cat") in DEVICE_CATS)
@@ -1033,10 +1065,7 @@ def evaluate_cli(fast: bool = False) -> dict:
     root = Path(__file__).resolve().parent / "build" / ("smoke_fast" if fast else "smoke")
     root.mkdir(parents=True, exist_ok=True)
     extra = ["--fast"] if fast else []
-    queries = ["a man in a red jacket talks to the camera on a busy street",
-               "two dogs chase a ball across the beach at sunset",
-               "a woman slices vegetables and adds them to a pan"]
-    anns = [{"vid": f"v{i}", "qid": i, "query": queries[i % 3], "duration": 150,
+    anns = [{"vid": f"v{i}", "qid": i, "query": QUERIES[i % 3], "duration": 150,
              "relevant_windows": [[10.0 + 24 * i, 34.0 + 24 * i]]} for i in range(5)]
     gt, out = root / "annotations.jsonl", root / "predictions.jsonl"
     gt.write_text("".join(json.dumps(a) + "\n" for a in anns))
@@ -1086,15 +1115,374 @@ def evaluate_cli(fast: bool = False) -> dict:
                 profile_batch0=breakdown)
 
 
+# --------------------------------------------------------------------------
+# Phases 12-15: the serving path
+# --------------------------------------------------------------------------
+
+# obs_score on the card vs a dense f32 computation of the same inputs: f32
+# sums in other orders; random weights give logits of O(100), so a
+# probability may move by ~1e-4 of itself
+OBS_RTOL = 1e-3
+OBS_ATOL_PER_QUERY_HEAD = 1e-6
+
+
+def serve_annotations(n: int) -> list:
+    return [{"vid": f"s{i}", "qid": i, "query": QUERIES[i % 3], "duration": 150,
+             "relevant_windows": [[10.0 + 24 * (i % 5), 34.0 + 24 * (i % 5)]]} for i in range(n)]
+
+
+def set_launches(value: int = 0) -> None:
+    from mraudio_tpu_torch.ops.attention import flash_attention
+    from mraudio_tpu_torch.ops.gemv import decode_gemv
+
+    flash_attention.launches = decode_gemv.launches = value
+
+
+def read_launches() -> dict:
+    from mraudio_tpu_torch.ops.attention import flash_attention
+    from mraudio_tpu_torch.ops.gemv import decode_gemv
+
+    return {"flash_attention": flash_attention.launches, "decode_gemv": decode_gemv.launches}
+
+
+def check_records(records: list, n: int, what: str) -> None:
+    """``n`` records, one per qid, each on the serve schema with windows
+    that the parser produced (lists of [start, end])."""
+    if sorted(r["qid"] for r in records) != list(range(n)):
+        raise AssertionError(f"{what}: qids {sorted(r['qid'] for r in records)}")
+    for r in records:
+        wins = r["pred_relevant_windows"]
+        if (set(r) != {"qid", "query", "vid", "pred_relevant_windows", "raw_out", "latency_s"}
+                or not isinstance(r["raw_out"], str) or not isinstance(wins, list) or not wins
+                or not all(isinstance(w, list) and len(w) == 2 for w in wins)
+                or not r["latency_s"] > 0):
+            raise AssertionError(f"{what}: record off the serve schema: {r}")
+
+
+def serve_cli(name: str, extra: list, n: int = 6) -> dict:
+    """The serve CLI in-process at full width in the deployed default
+    configuration (no kernel: 0 launches asserted) on ``n`` synthetic QVH
+    requests; its records checked, its stats line and the peak memory
+    returned."""
+    from mraudio_tpu_torch.cli import serve as cli
+    from mraudio_tpu_torch.eval.span_utils import load_jsonl
+
+    root = Path(__file__).resolve().parent / "build" / f"smoke_{name}"
+    root.mkdir(parents=True, exist_ok=True)
+    ann, out = root / "annotations.jsonl", root / "predictions.jsonl"
+    ann.write_text("".join(json.dumps(a) + "\n" for a in serve_annotations(n)))
+    out.unlink(missing_ok=True)
+    torch.cuda.reset_peak_memory_stats()
+    set_launches(0)
+    t = time.perf_counter()
+    stats = cli.main(["--annotation-file", str(ann), "--output-file", str(out),
+                      "--model-size", "full", "--video-source", "synthetic", *extra])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_launches()
+    if launches != {"flash_attention": 0, "decode_gemv": 0}:
+        raise AssertionError(f"{name}: the default configuration launched kernels: {launches}")
+    records = load_jsonl(str(out))
+    check_records(records, n, name)
+    if stats["requests"] != n:
+        raise AssertionError(f"{name}: stats {stats}")
+    return dict(stats=stats, launches=launches, peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                wall_s_with_model_build=wall, raw_out=[r["raw_out"] for r in records])
+
+
+def drive_engine(engine, requests: list, cancel_id=None, trace: bool = False):
+    """Run ``requests`` through the engine, admitting what fits whenever a
+    slot is free; ``cancel_id`` is cancelled after its first token.
+    Returns ``(tokens by request id, decode dispatches, seconds)``."""
+    from torch.profiler import record_function
+
+    pending, results, dispatches = list(requests), {}, 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with record_function("engine") if trace else contextlib.nullcontext():
+        while (pending or engine.active.any() or engine._inflight
+               or engine.admission_pending()):
+            if pending and engine.free_slots():
+                del pending[:engine.submit_many(pending)]
+            if engine.active.any():
+                dispatches += 1
+            if engine.active.any() or engine._inflight:
+                for c in engine.step():
+                    results[c.request_id] = list(c.token_ids)
+            if cancel_id is not None:
+                for i in range(engine.max_slots):
+                    if engine.slot_request[i] == cancel_id and engine.emitted[i]:
+                        engine.cancel(cancel_id)
+                        cancel_id = None
+        torch.cuda.synchronize()
+    return results, dispatches, time.perf_counter() - t
+
+
+def same_tokens(results: dict, ref, eos: int, what: str) -> None:
+    """Each request's tokens are the reference row's up to the request's
+    end (EOS or the budget)."""
+    for rid, tokens in results.items():
+        want = [int(x) for x in ref[rid]]
+        if tokens != want[:len(tokens)] or not (len(tokens) == len(want) or tokens[-1] == eos):
+            raise AssertionError(f"{what}: request {rid} gives {tokens}, want {want}")
+
+
+def serve_model(dev):
+    """The deployed default configuration in-process, random weights from
+    ``train.seed``, and 4 synthetic QVH requests encoded up front (device-
+    resident prefixes)."""
+    from mraudio_tpu_torch.cli.serve import encode_requests
+    from mraudio_tpu_torch.config import DataConfig, RunConfig, full_model_config
+    from mraudio_tpu_torch.data.dataset import MRDataset
+    from mraudio_tpu_torch.infer.evaluate import build_model as build_run_model
+    from mraudio_tpu_torch.models.casting import cast_params_for_inference
+
+    cfg = RunConfig(model=full_model_config(),
+                    data=DataConfig.for_dataset("QVH", video_source="synthetic"))
+    model = cast_params_for_inference(build_run_model(cfg, dev))
+    dataset = MRDataset(cfg.data, annotations=serve_annotations(4))
+    requests = encode_requests(model, dataset, device_embeds=True, encode_batch=2,
+                               host_ahead=0)
+    return model, requests
+
+
+def serve_identities(model, requests) -> dict:
+    """The reference's serving contracts on the card, at full width in the
+    deployed default configuration with 4 slots: three requests' tokens
+    equal the offline ``greedy_generate``'s at batch 3, at pipeline depth
+    2 and 1, at 2 steps per dispatch, at ``spec_width`` 4 with hints, and
+    with a fourth request cancelled mid-decode.  ``serve()`` reports its
+    timeouts, and Poisson arrivals give the burst run's records.  Returns
+    the phase's results and the offline tokens."""
+    from mraudio_tpu_torch.cli.serve import poisson_arrivals, serve
+    from mraudio_tpu_torch.infer.generate import greedy_generate
+    from mraudio_tpu_torch.infer.serving import ContinuousBatcher
+
+    llm, eos = model.llm, model.llm_tokenizer.eos_token_id
+    max_new = model.cfg.max_new_tokens
+    reqs = [r for r, _ in requests]
+    s = reqs[0].prefix_embeds.shape[0]
+    dev = model.device
+    t = time.perf_counter()
+    offline = greedy_generate(
+        llm, torch.stack([r.prefix_embeds for r in reqs[:3]]),
+        torch.from_numpy(np.stack([r.prefix_mask for r in reqs[:3]])).to(dev), max_new,
+        eos).cpu().numpy()
+    offline_s = time.perf_counter() - t
+    runs = {}
+    for name, kw in (("depth_2", {}), ("depth_1", dict(pipeline_depth=1)),
+                     ("steps_2", dict(steps_per_dispatch=2)), ("spec_4", dict(spec_width=4))):
+        engine = ContinuousBatcher(llm, s, max_new, eos, max_slots=4, **kw)
+        if name == "depth_2":         # the traced run
+            tokens, dispatches, secs, profile = profile_engine(engine, reqs[:3])
+        else:
+            tokens, dispatches, secs = drive_engine(engine, reqs[:3])
+        engine.close()
+        same_tokens(tokens, offline, eos, f"engine {name} vs offline greedy")
+        runs[name] = dict(dispatches=dispatches, seconds=secs)
+    engine = ContinuousBatcher(llm, s, max_new, eos, max_slots=4)
+    tokens, dispatches, secs = drive_engine(engine, reqs, cancel_id=3)
+    engine.close()
+    if sorted(tokens) != [0, 1, 2]:
+        raise AssertionError(f"cancel run completed {sorted(tokens)}")
+    same_tokens(tokens, offline, eos, "engine with request 3 cancelled")
+    runs["cancel_mid_decode"] = dict(dispatches=dispatches, seconds=secs)
+
+    burst, burst_stats = serve(model, requests[:3], 4, max_new)
+    load, load_stats = serve(model, requests[:3], 4, max_new,
+                             arrivals=poisson_arrivals(3, 0.5, seed=0))
+
+    def strip(records):
+        return sorted(({k: v for k, v in r.items() if k != "latency_s"} for r in records),
+                      key=lambda r: r["qid"])
+
+    check_records(burst, 3, "serve burst")
+    if strip(load) != strip(burst):
+        raise AssertionError("serve: Poisson arrivals give other records than the burst")
+    _, timeout_stats = serve(model, requests[:3], 4, max_new,
+                             arrivals=poisson_arrivals(3, 50.0, seed=0), request_timeout_s=1e-3)
+    if not (timeout_stats["timeouts"] >= 1
+            and timeout_stats["timeouts"] + timeout_stats["requests"] == 3):
+        raise AssertionError(f"serve: timeouts not reported: {timeout_stats}")
+    return dict(prefix_len=s, offline_greedy_s=offline_s, tokens_identical=True, runs=runs,
+                engine_profile=profile,
+                burst_stats=burst_stats, load_stats=load_stats,
+                load_records_equal_burst=True, timeouts=timeout_stats["timeouts"]), offline
+
+
+def profile_engine(engine, requests):
+    """``drive_engine`` under ``torch.profiler``: its results, and the
+    device's busy time and idle share over the ``engine`` span.  The
+    profiler slows the host, so the share overstates the unprofiled
+    run's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tokens, dispatches, secs = drive_engine(engine, requests, trace=True)
+    trace = Path(__file__).resolve().parent / "build" / "profile" / "engine_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    breakdown = phase_breakdown(trace, {"engine_s": secs}, names=("engine",))["engine"]
+    return tokens, dispatches, secs, breakdown
+
+
+def _dense_obs_scores(q_obs, k_full, k_scale, kv_valid, q_start: int) -> torch.Tensor:
+    """The observation-window statistic in f32 over all heads at once."""
+    b, w, h, d = q_obs.shape
+    kv = k_full.shape[1]
+    logits = torch.einsum("bwhd,bkhd->bhwk", q_obs.float(), k_full.float()) * (d ** -0.5)
+    logits = logits * k_scale[:, :, None, :]
+    cols = torch.arange(kv, device=q_obs.device)
+    ok = (cols[None, :] <= (q_start + torch.arange(w, device=q_obs.device))[:, None])[None, None]
+    ok = ok & (kv_valid[:, None, None, :] > 0)
+    probs = torch.softmax(torch.where(ok, logits, -1e30), dim=-1)
+    probs = probs * kv_valid[:, q_start:q_start + w].float()[:, None, :, None]
+    return probs.sum(dim=(1, 2))
+
+
+def _plain_selection(obs_score, kv_valid, keep: int, sink: int, obs: int, s: int) -> np.ndarray:
+    """The reference's rule on the host: top ``keep`` columns by score,
+    protected columns first, invalid last, lowest index first among ties,
+    in column order."""
+    score = obs_score[:, :s].double().cpu().numpy()
+    col = np.arange(s)
+    score = np.where((col < sink) | (col >= s - obs), 1e30, score)
+    score = np.where(kv_valid[:, :s].cpu().numpy() > 0, score, -1e30)
+    return np.sort(np.argsort(-score, axis=-1, kind="stable")[:, :keep], axis=-1)
+
+
+def serve_deployed_checks(model, requests, offline_tokens, kv_keep: int = 1784) -> dict:
+    """``bench.py``'s serve profile on the card: one admission of two
+    requests under ``kv_keep`` (1784 there).  Per layer, the kept columns are the
+    plain rule's selection from the card's own ``obs_score``, and that
+    score lies within OBS_RTOL / OBS_ATOL of a dense f32 computation on the
+    same inputs.  Then, with ``kv_keep`` above the prefix length (every
+    column kept), 2-wide admissions and 2 steps per dispatch give the
+    offline greedy tokens ``offline_tokens`` of the first three requests."""
+    import mraudio_tpu_torch.models.llama as llama_mod
+    from mraudio_tpu_torch.infer.serving import ContinuousBatcher
+    from mraudio_tpu_torch.models.llama import compaction_sizes
+
+    llm, eos = model.llm, model.llm_tokenizer.eos_token_id
+    max_new = model.cfg.max_new_tokens
+    reqs = [r for r, _ in requests]
+    s = reqs[0].prefix_embeds.shape[0]
+    calls = []
+    real = llama_mod.observation_scores
+
+    def recording(q_obs, k_full, k_scale, kv_valid, q_start, score):
+        out = real(q_obs, k_full, k_scale, kv_valid, q_start, score)
+        calls.append((q_obs, k_full, k_scale, kv_valid, q_start, score, out))
+        return out
+
+    with llm_settings(model, kv_keep=kv_keep):
+        engine = ContinuousBatcher(llm, s, max_new, eos, max_slots=4, max_prefill_batch=2,
+                                   steps_per_dispatch=2)
+        llama_mod.observation_scores = recording
+        try:
+            engine.begin_admission(reqs[:2])
+            while engine._admission["chunk"] < len(engine._chunk_starts):
+                engine.admission_step()
+        finally:
+            llama_mod.observation_scores = real
+        ad = engine._admission
+        batch_cache, pmask = ad["cache"], ad["pmask"]
+        engine.admission_step()                       # the epilogue: compaction, slots
+        keep, sink, obs = compaction_sizes(llm.cfg, s)
+        if len(calls) != llm.cfg.num_layers:
+            raise AssertionError(f"observation scores computed {len(calls)} times")
+        worst = 0.0
+        max_err = 0.0
+        for i, (q_obs, k_full, k_scale, kv_valid, q_start, before, after) in enumerate(calls):
+            ref = before + _dense_obs_scores(q_obs, k_full, k_scale, kv_valid, q_start)
+            w, h = q_obs.shape[1], q_obs.shape[2]
+            err = (after - ref).abs()
+            limit = OBS_RTOL * ref.abs() + OBS_ATOL_PER_QUERY_HEAD * w * h
+            worst = max(worst, float((err / limit).max()))
+            max_err = max(max_err, float(err.max()))
+            if not worst <= 1.0:
+                raise AssertionError(f"layer {i}: obs_score {worst} x its limit from dense f32")
+            idx = torch.from_numpy(_plain_selection(batch_cache[i]["obs_score"], pmask, keep,
+                                                    sink, obs, s)).to(model.device)
+            kept = engine.cache[i]
+            for name in ("k", "v"):
+                want = batch_cache[i][name][:2].gather(
+                    1, idx[:, :, None, None].expand(-1, -1, *batch_cache[i][name].shape[2:]))
+                if not torch.equal(kept[name][:2, :keep], want):
+                    raise AssertionError(f"layer {i}: kept {name} columns are not the plain "
+                                         "selection's")
+            for name in ("k_scale", "v_scale"):
+                want = batch_cache[i][name][:2].gather(
+                    2, idx[:, None, :].expand(-1, batch_cache[i][name].shape[1], -1))
+                if not torch.equal(kept[name][:2, :, :keep], want):
+                    raise AssertionError(f"layer {i}: kept {name} is not the plain selection's")
+            if not torch.equal(kept["valid"][:2, :keep], pmask[:2].gather(1, idx)):
+                raise AssertionError(f"layer {i}: the valid leaf is not the plain selection's")
+        engine.close()
+        del batch_cache, calls, ad
+
+    with llm_settings(model, kv_keep=100000):
+        engine = ContinuousBatcher(llm, s, max_new, eos, max_slots=4, max_prefill_batch=2,
+                                   steps_per_dispatch=2)
+        tokens, dispatches, secs = drive_engine(engine, reqs[:3])
+        engine.close()
+    same_tokens(tokens, offline_tokens, eos, "kv_keep above the prefix vs uncompacted")
+    return dict(kv_keep=kv_keep, keep=keep, sink=sink, obs=obs, layers_checked=llm.cfg.num_layers,
+                obs_score_max_abs_err=max_err, obs_score_err_over_limit=worst,
+                kept_columns_equal_plain_selection=True,
+                keep_all_tokens_equal_uncompacted=True, keep_all_dispatches=dispatches,
+                keep_all_seconds=secs)
+
+
+def serve_slice(model, requests) -> dict:
+    """The engine in the slice configuration (flash prefill, GEMV decode
+    projections, one-shot prefill), greedy and at ``spec_width`` 4: 32
+    flash launches per admission and 224 GEMV launches per dispatch
+    (M = 4 slots, or 4 x 4 rows in a verify pass), and identical tokens."""
+    from mraudio_tpu_torch.infer.serving import ContinuousBatcher
+
+    llm, eos = model.llm, model.llm_tokenizer.eos_token_id
+    layers = llm.cfg.num_layers
+    reqs = [r for r, _ in requests[:3]]
+    s = reqs[0].prefix_embeds.shape[0]
+    runs, tokens = {}, {}
+    with llm_settings(model, attention_impl="pallas", decode_gemv="pallas", prefill_chunk=0):
+        for name, w in (("greedy", 1), ("spec_4", 4)):
+            engine = ContinuousBatcher(llm, s, model.cfg.max_new_tokens, eos, max_slots=4,
+                                       spec_width=w)
+            torch.cuda.reset_peak_memory_stats()
+            set_launches(0)
+            tokens[name], dispatches, secs = drive_engine(engine, reqs)
+            launches = read_launches()
+            engine.close()
+            want = {"flash_attention": layers, "decode_gemv": 7 * layers * dispatches}
+            if launches != want:
+                raise AssertionError(f"serve slice {name}: launches {launches} for "
+                                     f"{dispatches} dispatches, want {want}")
+            runs[name] = dict(launches=launches, dispatches=dispatches, seconds=secs,
+                              peak_mem_bytes=torch.cuda.max_memory_allocated())
+    if tokens["greedy"] != tokens["spec_4"]:
+        raise AssertionError(f"serve slice: spec_width 4 gives other tokens than greedy")
+    return dict(tokens_identical=True, **runs)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="also write every phase's result to this JSON file")
+    ap.add_argument("--only", default="",
+                    help="comma-separated phases to run (kernels, models, evaluate, serve); "
+                         "a partial run prints no summary and no ok line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — no card", file=sys.stderr)
         return 1
     from mraudio_tpu_torch.ops import build   # fails outside a checkout of the repo
+
+    only = set(filter(None, args.only.split(",")))
+
+    def on(group: str) -> bool:
+        return not only or group in only
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1118,92 +1506,164 @@ def main() -> int:
     # prefix + 64-token budget + the 16-column widest draft
     b, h, d, s, kv = 3, 32, 128, 5353, 5353 + 64 + 16
     gen = torch.Generator(device=dev).manual_seed(0)
-    t = time.perf_counter()
-    flash = check_flash(dev, b, h, s, kv, d, gen)
-    emit({"phase": "kernel", **flash})
-    flash_cases = check_flash_cases(dev, gen)
-    emit({"phase": "kernel", "name": "flash_attention, smaller cases", "cases": flash_cases})
-    gemvs, gemvs12 = [], []
-    for kdim, n, int8 in ((4096, 4096, True), (4096, 11008, True), (11008, 4096, True),
-                          (4096, 4096, False)):
-        r = check_gemv(dev, b, kdim, n, int8, gen)
-        emit({"phase": "kernel", **r})
-        gemvs.append(r)
-    for kdim, n in ((4096, 4096), (4096, 11008), (11008, 4096)):   # a speculative pass
-        r = check_gemv(dev, 12, kdim, n, True, gen)
-        emit({"phase": "kernel", **r})
-        gemvs12.append(r)
-    gemv_rows = check_gemv_rows(gen)
-    emit({"phase": "kernel", "name": "decode_gemv, M=12 rows vs M=3 launches",
-          "rows": gemv_rows})
-    gemv_other = check_gemv_other(gen)
-    emit({"phase": "kernel", "name": "decode_gemv, other row counts and shapes",
-          "vs_plain": gemv_other})
-    per_row = check_per_row_attention(dev, b, h, s, 4, d, gen)
-    emit({"phase": "plain_op", **per_row})
-    chunked = check_chunked_attention(dev, b, h, s, kv, d, 2048, gen)
-    emit({"phase": "plain_op", **chunked})
-    xla_proj = check_xla_projections(dev, b, gen)
-    emit({"phase": "plain_op", **xla_proj})
 
     def layer(rs):      # one decoder layer's GEMVs: q, k, v, o (4096²), gate, up, down
         per_layer = [rs[0]] * 4 + [rs[1]] * 2 + [rs[2]]
         return {key: sum(r[key] for r in per_layer)
                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
 
-    gemv_layer, gemv_layer12 = layer(gemvs), layer(gemvs12)
-    emit({"phase": "kernel", "name": "decode_gemv, one decoder layer",
-          "b3": gemv_layer, "b12": gemv_layer12})
-    results["kernels"] = dict(flash=flash, flash_cases=flash_cases, gemv=gemvs, gemv12=gemvs12,
-                              gemv_rows=gemv_rows, gemv_other=gemv_other,
-                              per_row_attention=per_row, chunked_attention=chunked,
-                              xla_projections=xla_proj, gemv_layer=gemv_layer,
-                              gemv_layer12=gemv_layer12)
-    emit({"phase": "kernels", "seconds": time.perf_counter() - t})
+    if on("kernels"):
+        t = time.perf_counter()
+        flash = check_flash(dev, b, h, s, kv, d, gen)
+        emit({"phase": "kernel", **flash})
+        flash_cases = check_flash_cases(dev, gen)
+        emit({"phase": "kernel", "name": "flash_attention, smaller cases", "cases": flash_cases})
+        gemvs = []
+        for kdim, n, int8 in ((4096, 4096, True), (4096, 11008, True), (11008, 4096, True),
+                              (4096, 4096, False)):
+            r = check_gemv(dev, b, kdim, n, int8, gen)
+            emit({"phase": "kernel", **r})
+            gemvs.append(r)
+        # M = 12: a speculative pass of 3 rows; M = 4 and 16: the engine's
+        # 4 slots, greedy and in a verify pass of 4 positions
+        gemvs_m = {}
+        for m in (12, 4, 16):
+            gemvs_m[m] = []
+            for kdim, n in ((4096, 4096), (4096, 11008), (11008, 4096)):
+                r = check_gemv(dev, m, kdim, n, True, gen, by_cluster=False)
+                emit({"phase": "kernel", **r})
+                gemvs_m[m].append(r)
+        gemv_rows = check_gemv_rows(gen)
+        emit({"phase": "kernel", "name": "decode_gemv, M=12 rows vs M=3 launches",
+              "rows": gemv_rows})
+        gemv_rows16 = check_gemv_rows(gen, m=16, split=4)
+        emit({"phase": "kernel", "name": "decode_gemv, M=16 rows vs M=4 launches",
+              "rows": gemv_rows16})
+        gemv_other = check_gemv_other(gen)
+        emit({"phase": "kernel", "name": "decode_gemv, other row counts and shapes",
+              "vs_plain": gemv_other})
+        per_row = check_per_row_attention(dev, b, h, s, 4, d, gen)
+        emit({"phase": "plain_op", **per_row})
+        chunked = check_chunked_attention(dev, b, h, s, kv, d, 2048, gen)
+        emit({"phase": "plain_op", **chunked})
+        xla_proj = check_xla_projections(dev, b, gen)
+        emit({"phase": "plain_op", **xla_proj})
 
-    t = time.perf_counter()
-    results["small"] = small_reference(dev)
-    emit({"phase": "small_reference", **results["small"], "seconds": time.perf_counter() - t})
+        gemv_layer = layer(gemvs)
+        gemv_layer_m = {m: layer(rs) for m, rs in gemvs_m.items()}
+        emit({"phase": "kernel", "name": "decode_gemv, one decoder layer",
+              "b3": gemv_layer, **{f"b{m}": v for m, v in gemv_layer_m.items()}})
+        results["kernels"] = dict(flash=flash, flash_cases=flash_cases, gemv=gemvs,
+                                  gemv_m=gemvs_m, gemv_rows=gemv_rows, gemv_rows16=gemv_rows16,
+                                  gemv_other=gemv_other, per_row_attention=per_row,
+                                  chunked_attention=chunked, xla_projections=xla_proj,
+                                  gemv_layer=gemv_layer, gemv_layer_m=gemv_layer_m)
+        emit({"phase": "kernels", "seconds": time.perf_counter() - t})
 
-    t = time.perf_counter()
-    full, model, batch, full_logits, greedy_tokens = full_generate(dev)
-    results["full"] = full
-    emit({"phase": "full_generate", **full, "seconds": time.perf_counter() - t})
+    if on("models"):
+        t = time.perf_counter()
+        results["small"] = small_reference(dev)
+        emit({"phase": "small_reference", **results["small"], "seconds": time.perf_counter() - t})
 
-    t = time.perf_counter()
-    results["profile"] = profile_generate(model, batch, full)
-    emit({"phase": "profile", **results["profile"], "seconds": time.perf_counter() - t})
+        t = time.perf_counter()
+        full, model, batch, full_logits, greedy_tokens = full_generate(dev)
+        results["full"] = full
+        emit({"phase": "full_generate", **full, "seconds": time.perf_counter() - t})
 
-    t = time.perf_counter()
-    results["segmented"] = segmented_prefill(model, batch, full, full_logits)
-    emit({"phase": "segmented_prefill", **results["segmented"],
-          "seconds": time.perf_counter() - t})
+        t = time.perf_counter()
+        results["profile"] = profile_generate(model, batch, full)
+        emit({"phase": "profile", **results["profile"], "seconds": time.perf_counter() - t})
 
-    t = time.perf_counter()
-    results["grammar"] = grammar_decode(model, batch)
-    emit({"phase": "grammar_generate", **results["grammar"], "seconds": time.perf_counter() - t})
+        t = time.perf_counter()
+        results["segmented"] = segmented_prefill(model, batch, full, full_logits)
+        emit({"phase": "segmented_prefill", **results["segmented"],
+              "seconds": time.perf_counter() - t})
 
-    t = time.perf_counter()
-    results["lookup"] = lookup_decode(model, batch, full, greedy_tokens)
-    emit({"phase": "lookup_generate", **results["lookup"], "seconds": time.perf_counter() - t})
-    del model, batch, full_logits
-    gc.collect()
-    torch.cuda.empty_cache()
+        t = time.perf_counter()
+        results["grammar"] = grammar_decode(model, batch)
+        emit({"phase": "grammar_generate", **results["grammar"],
+              "seconds": time.perf_counter() - t})
 
-    t = time.perf_counter()
-    results["evaluate"] = evaluate_cli()
-    emit({"phase": "evaluate", **results["evaluate"], "seconds": time.perf_counter() - t})
+        t = time.perf_counter()
+        results["lookup"] = lookup_decode(model, batch, full, greedy_tokens)
+        emit({"phase": "lookup_generate", **results["lookup"], "seconds": time.perf_counter() - t})
+        del model, batch, full_logits
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    t = time.perf_counter()
-    results["fast_evaluate"] = evaluate_cli(fast=True)
-    emit({"phase": "fast_evaluate", **results["fast_evaluate"],
-          "seconds": time.perf_counter() - t})
+    if on("evaluate"):
+        t = time.perf_counter()
+        results["evaluate"] = evaluate_cli()
+        emit({"phase": "evaluate", **results["evaluate"], "seconds": time.perf_counter() - t})
+
+        t = time.perf_counter()
+        results["fast_evaluate"] = evaluate_cli(fast=True)
+        emit({"phase": "fast_evaluate", **results["fast_evaluate"],
+              "seconds": time.perf_counter() - t})
+
+    if on("serve"):
+        t = time.perf_counter()
+        results["serve"] = serve_cli("serve", [])
+        emit({"phase": "serve", **results["serve"], "seconds": time.perf_counter() - t})
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # bench.py's serve profile (bench.py:640-700)
+        t = time.perf_counter()
+        deployed_cli = serve_cli("serve_deployed", [
+            "--slots", "4", "--max-prefill-batch", "2", "--kv-keep", "1784",
+            "--steps-per-dispatch", "2", "--encode-mode", "inline", "--encode-batch", "2",
+            "--encode-ahead", "1"])
+        deployed_cli_s = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        model, requests = serve_model(dev)
+        set_launches(0)
+        results["serve_identities"], offline = serve_identities(model, requests)
+        if read_launches() != {"flash_attention": 0, "decode_gemv": 0}:
+            raise AssertionError(f"serve identities launched kernels: {read_launches()}")
+        results["serve_identities"]["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        emit({"phase": "serve_identities", **results["serve_identities"],
+              "seconds": time.perf_counter() - t})
+
+        t = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        checks = serve_deployed_checks(model, requests, offline)
+        results["serve_deployed"] = dict(cli=deployed_cli, **checks,
+                                         checks_peak_mem_bytes=torch.cuda.max_memory_allocated())
+        emit({"phase": "serve_deployed", **results["serve_deployed"],
+              "seconds": deployed_cli_s + time.perf_counter() - t})
+
+        t = time.perf_counter()
+        results["serve_slice"] = serve_slice(model, requests)
+        emit({"phase": "serve_slice", **results["serve_slice"],
+              "seconds": time.perf_counter() - t})
+        del model, requests
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1, default=str)
+    if only:
+        emit({"partial": sorted(only)})
+        return 0
+
     launches_by_path = {name: {"full_generate": full["launches"][name],
                                "segmented_prefill": results["segmented"]["launches"][name],
                                "grammar_generate": results["grammar"]["launches"][name],
                                "lookup_generate": results["lookup"]["launches"][name],
                                "evaluate": results["evaluate"]["launches"][name],
-                               "fast_evaluate": results["fast_evaluate"]["launches"][name]}
+                               "fast_evaluate": results["fast_evaluate"]["launches"][name],
+                               "serve": results["serve"]["launches"][name],
+                               "serve_deployed": results["serve_deployed"]["cli"]["launches"][name],
+                               "serve_slice_greedy":
+                                   results["serve_slice"]["greedy"]["launches"][name],
+                               "serve_slice_spec_4":
+                                   results["serve_slice"]["spec_4"]["launches"][name]}
                         for name in ("flash_attention", "decode_gemv")}
 
     kernels = [
@@ -1220,13 +1680,11 @@ def main() -> int:
              replaces="mraudio_tpu/ops/gemv.py:109",
              launches=full["launches"]["decode_gemv"],
              launches_by_path=launches_by_path["decode_gemv"],
-             max_abs_err=max(r["max_abs_err"] for r in gemvs + gemvs12),
+             max_abs_err=max(r["max_abs_err"] for r in gemvs + sum(gemvs_m.values(), [])),
              per="one decoder layer: q,k,v,o,gate,up,down int8 at B=3",
-             bound_by="bytes", **gemv_layer, b12=gemv_layer12),
+             bound_by="bytes", **gemv_layer,
+             **{f"b{m}": v for m, v in gemv_layer_m.items()}),
     ]
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(results, f, indent=1, default=str)
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -142,7 +142,11 @@ class LlamaConfig(_ConfigBase):
     # KV-cache storage: "none" | "int8" (per-(row, position, head) absmax
     # with f32 scales) | "int4" (not ported)
     kv_quant: str = "none"
-    kv_keep: int = 0               # post-prefill KV compaction: not ported
+    # Post-prefill KV compaction, SnapKV (0 = off): each layer keeps its
+    # `kv_keep` prefix columns with the most attention mass from the last
+    # `kv_keep_obs` prefix queries; the first `kv_keep_sink` columns and
+    # the observation window are always kept.  An approximation.
+    kv_keep: int = 0
     kv_keep_obs: int = 32
     kv_keep_sink: int = 4
     grad_checkpoint: bool = False

@@ -62,6 +62,26 @@ def build_model(cfg: RunConfig, device="cuda"):
     return init_random_(model, seed=cfg.train.seed)
 
 
+def refuse_unported(cfg: RunConfig) -> None:
+    """Raise ``NotImplementedError``, naming the ROADMAP.md item, for a
+    config that asks for what the port cannot do yet: converted weights
+    or a tokenizer path, int8 encoders, a mesh, the saliency head."""
+    named = [f for f in _WEIGHT_FIELDS if getattr(cfg, f)]
+    if named:
+        raise NotImplementedError(
+            f"loading converted weights ({', '.join(named)}) is not ported yet "
+            "(ROADMAP.md A.8: tooling); leave them empty for seeded random weights")
+    if cfg.quant_encoders:
+        raise NotImplementedError("RunConfig.quant_encoders is not ported yet "
+                                  "(ROADMAP.md A.2: models/quant_tree.py)")
+    if cfg.mesh.num_devices > 1:
+        raise NotImplementedError("a mesh of more than one device is not ported yet "
+                                  "(ROADMAP.md A.7: parallelism)")
+    if cfg.model.saliency_head:
+        raise NotImplementedError("the saliency head is not ported yet "
+                                  "(ROADMAP.md A.5: training)")
+
+
 def run_inference(
     cfg: RunConfig,
     model=None,
@@ -86,20 +106,7 @@ def run_inference(
     whole pass (records are written only after a pass completes)."""
     from mraudio_tpu_torch.models.casting import cast_params_for_inference
 
-    named = [f for f in _WEIGHT_FIELDS if getattr(cfg, f)]
-    if named:
-        raise NotImplementedError(
-            f"loading converted weights ({', '.join(named)}) is not ported yet "
-            "(ROADMAP.md A.8: tooling); leave them empty for seeded random weights")
-    if cfg.quant_encoders:
-        raise NotImplementedError("RunConfig.quant_encoders is not ported yet "
-                                  "(ROADMAP.md A.2: models/quant_tree.py)")
-    if cfg.mesh.num_devices > 1:
-        raise NotImplementedError("a mesh of more than one device is not ported yet "
-                                  "(ROADMAP.md A.7: parallelism)")
-    if cfg.model.saliency_head:
-        raise NotImplementedError("the saliency head is not ported yet "
-                                  "(ROADMAP.md A.5: training)")
+    refuse_unported(cfg)
     if model is None:
         model = build_model(cfg, device)
     cast_params_for_inference(model)

@@ -15,6 +15,12 @@ cache length for all three, the attention's tiles over the cache — and
 so every committed token's arithmetic — do not depend on which decoder
 runs: lookup decoding gives greedy's tokens, and grammar decoding at any
 ``spec_width`` gives the tokens of ``spec_width=1``.
+
+Under ``cfg.kv_keep`` the prefill scores every column (SnapKV's
+observation window, the prefix's last ``kv_keep_obs`` queries) and each
+decoder compacts the cache to ``keep + max_new_tokens + MAX_SPEC_WIDTH``
+columns before its loop (``models/llama.py::compact_cache``): the same
+one-shape rule, with ``keep`` in place of ``s``.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import torch
 from torch.profiler import record_function
 
 from mraudio_tpu_torch.models.layers import NEG_INF
-from mraudio_tpu_torch.models.llama import LlamaModel, init_cache
+from mraudio_tpu_torch.models.llama import LlamaModel, compact_cache, init_cache
 
 # the widest speculative draft (one query tile of chunked_attention)
 MAX_SPEC_WIDTH = 16
@@ -45,10 +51,13 @@ def prefill_cache(model: LlamaModel, prefix_embeds, positions, full_mask, alloc_
     With ``cfg.prefill_chunk`` the pass runs in segments: segment ``i``
     writes cache columns ``[o, o + c)`` and attends everything written
     so far (``cache_index=o``, the attention's static query offset).
+    Under ``cfg.kv_keep`` each layer's cache also gets ``obs_score``, the
+    observation window's column scores, summed over the segments.
     ``stats``, if given, receives ``prefill_segments``."""
     b, s, _ = prefix_embeds.shape
     chunk = model.cfg.prefill_chunk
     starts = list(range(0, s, chunk)) if chunk and s > chunk else [0]
+    obs_start = s - min(model.cfg.kv_keep_obs, s) if model.cfg.kv_keep > 0 else None
     dev = prefix_embeds.device
     cache = init_cache(model.cfg, b, alloc_len, dev)
     k_idx = torch.arange(alloc_len, device=dev)
@@ -63,7 +72,7 @@ def prefill_cache(model: LlamaModel, prefix_embeds, positions, full_mask, alloc_
         written = full_mask * (k_idx < o + c).to(full_mask.dtype)[None, :]
         hidden, cache = model(prefix_embeds[:, o:o + c], attend, positions[:, o:o + c],
                               cache=cache, cache_index=o, kv_valid=written, causal=True,
-                              return_hidden=True)
+                              return_hidden=True, obs_start=obs_start)
     if stats is not None:
         stats["prefill_segments"] = len(starts)
     return hidden, cache
@@ -73,8 +82,11 @@ def _prefill(model: LlamaModel, prefix_embeds, prefix_mask, max_new_tokens: int,
              stats: dict | None):
     """The shared prefill, inside the ``prefill`` profiler span: returns
     ``(last position (B,), cache-column mask (B, alloc_len), cache,
-    last-position f32 logits (B, V), the clock at its end)``.  ``stats``
-    receives ``prefill_s``, ``prefill_segments`` and ``prefill_logits``."""
+    last-position f32 logits (B, V), the clock at its end, the first
+    decode column)``.  Under ``cfg.kv_keep`` the cache comes compacted to
+    ``keep`` prefix columns (the first decode column), the mask covering
+    them; each layer's ``valid`` leaf refines it.  ``stats`` receives
+    ``prefill_s``, ``prefill_segments`` and ``prefill_logits``."""
     b, s, _ = prefix_embeds.shape
     dev = prefix_embeds.device
     alloc_len = s + max_new_tokens + MAX_SPEC_WIDTH
@@ -86,13 +98,19 @@ def _prefill(model: LlamaModel, prefix_embeds, prefix_mask, max_new_tokens: int,
         hidden, cache = prefill_cache(model, prefix_embeds, positions, full_mask, alloc_len,
                                       stats=stats)
         last_logits = model.logits(hidden[:, -1:])[:, -1]
+        if model.cfg.kv_keep:
+            extra = alloc_len - s
+            cache = compact_cache(model.cfg, cache, full_mask, s, extra)
+            s = min(model.cfg.kv_keep, s)
+            full_mask = torch.zeros((b, s + extra), dtype=torch.int32, device=dev)
+            full_mask[:, :s] = 1
         t1 = t0
         if stats is not None:
             _sync(dev)
             t1 = time.perf_counter()
             stats["prefill_s"] = t1 - t0
             stats["prefill_logits"] = last_logits
-    return positions[:, -1], full_mask, cache, last_logits, t1
+    return positions[:, -1], full_mask, cache, last_logits, t1, s
 
 
 def _decode_stats(stats: dict | None, dev, t1: float, passes: int, emitted=None) -> None:
@@ -115,10 +133,10 @@ def greedy_generate(model: LlamaModel, prefix_embeds, prefix_mask,
     (decoder calls after the prefill) and ``prefill_logits`` (the f32
     last-position logits that seed the decode).  The two phases run
     inside profiler spans named ``prefill`` and ``decode``."""
-    b, s, _ = prefix_embeds.shape
+    b = prefix_embeds.shape[0]
     dev = prefix_embeds.device
-    cur_pos, mask, cache, last_logits, t1 = _prefill(model, prefix_embeds, prefix_mask,
-                                                     max_new_tokens, stats)
+    cur_pos, mask, cache, last_logits, t1, s = _prefill(model, prefix_embeds, prefix_mask,
+                                                        max_new_tokens, stats)
     cur_id = last_logits.argmax(dim=-1).to(torch.int32)
     with record_function("decode"):
         tokens = torch.full((b, max_new_tokens), eos_id, dtype=torch.int32, device=dev)
@@ -198,10 +216,10 @@ def grammar_generate(model: LlamaModel, prefix_embeds, prefix_mask, max_new_toke
     w = spec_width
     if not 1 <= w <= MAX_SPEC_WIDTH:
         raise ValueError(f"spec_width {w}: 1..{MAX_SPEC_WIDTH}")
-    b, s, _ = prefix_embeds.shape
+    b = prefix_embeds.shape[0]
     dev = prefix_embeds.device
-    cur_pos, mask, cache, last_logits, t1 = _prefill(model, prefix_embeds, prefix_mask,
-                                                     max_new_tokens, stats)
+    cur_pos, mask, cache, last_logits, t1, s = _prefill(model, prefix_embeds, prefix_mask,
+                                                        max_new_tokens, stats)
 
     def masked_pick(states, logits_bv, remaining):
         """Grammar and budget mask, then argmax; ``remaining`` (B,):
@@ -314,10 +332,10 @@ def lookup_generate(model: LlamaModel, prefix_embeds, prefix_mask, max_new_token
     w = spec_width
     if not 2 <= w <= MAX_SPEC_WIDTH:
         raise ValueError(f"spec_width {w}: 2..{MAX_SPEC_WIDTH}")
-    b, s, _ = prefix_embeds.shape
+    b = prefix_embeds.shape[0]
     dev = prefix_embeds.device
-    cur_pos, mask, cache, last_logits, t1 = _prefill(model, prefix_embeds, prefix_mask,
-                                                     max_new_tokens, stats)
+    cur_pos, mask, cache, last_logits, t1, s = _prefill(model, prefix_embeds, prefix_mask,
+                                                        max_new_tokens, stats)
     cur_id = last_logits.argmax(dim=-1).to(torch.int32)
     with record_function("decode"):
         tokens = torch.full((b, max_new_tokens + w), eos_id, dtype=torch.int32, device=dev)

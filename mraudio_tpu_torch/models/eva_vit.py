@@ -19,7 +19,7 @@ from torch import nn
 from mraudio_tpu_torch.config import ViTConfig
 from mraudio_tpu_torch.device import torch_dtype
 from mraudio_tpu_torch.models.layers import (
-    Attention, Dense, LayerNormFp32, Mlp, _empty, gelu_exact,
+    Attention, Dense, LayerNormFp32, Mlp, _empty, gelu_exact, top_k_indices,
 )
 
 
@@ -103,13 +103,12 @@ class EvaViT(nn.Module):
             return key_out.reshape(b * nk, seq_len, cfg.width)
 
         # non-key frames: the R patches that changed most against their
-        # keyframe; a stable descending sort takes tied patches lowest
-        # index first, as jax.lax.top_k does
+        # keyframe (tied patches lowest index first, as in the reference)
         prev_key = [i // k_int for i in nn_idx]                       # index on the key axis
         nn_emb = emb[:, nn_idx]                                       # (B, nn, P, D)
         ref_emb = emb[:, [key_idx[j] for j in prev_key]]
         diff = (nn_emb.float() - ref_emb.float()).square().sum(dim=-1)       # (B, nn, P)
-        idx = torch.sort(diff, dim=-1, descending=True, stable=True).indices[..., :r]
+        idx = top_k_indices(diff, r)
         gather = idx[..., None].expand(-1, -1, -1, cfg.width)         # (B, nn, R, D)
         sel = nn_emb.gather(2, gather) + patch_pos[0][idx]
         sub_out = run(with_cls(sel.reshape(b * nn_, r, cfg.width)))

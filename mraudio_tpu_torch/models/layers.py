@@ -36,6 +36,13 @@ def pad_rows(x2: torch.Tensor) -> torch.Tensor:
     return x2
 
 
+def top_k_indices(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the ``k`` largest entries along the last axis, in
+    descending order, lowest index first among equal values (the order of
+    ``jax.lax.top_k``; a stable descending sort keeps it)."""
+    return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf-based) GELU."""
     return F.gelu(x)

@@ -11,6 +11,11 @@ The main-path subset of the JAX package's decoder:
   ``cache_index`` is an int (every row writes columns ``[i, i + s)``) or
   a (B,) tensor (row ``b`` writes ``[i_b, i_b + s)``: the speculative
   decoders' per-row columns, one index write per (row, column));
+* SnapKV compaction (``cfg.kv_keep``): a prefill given ``obs_start``
+  accumulates each layer's observation-window score into the cache's
+  ``obs_score``; :func:`compact_cache` keeps each layer's top-``keep``
+  columns and a per-layer ``valid`` leaf, which every later call writes
+  as tokens land and multiplies into ``kv_valid`` and the mask;
 * multi-token causal calls through the plain ``chunked_attention`` over
   the cache as stored (``cfg.attention_impl == "chunked"``, the default),
   or through the flash-attention kernel over the dequantized cache
@@ -32,8 +37,9 @@ from torch import nn
 
 from mraudio_tpu_torch.config import LlamaConfig, LoraConfig
 from mraudio_tpu_torch.device import torch_dtype
-from mraudio_tpu_torch.models.layers import DECODE_ROWS, NEG_INF, Embed, RMSNorm, _empty, pad_rows
-from mraudio_tpu_torch.ops.attention import chunked_attention, flash_attention
+from mraudio_tpu_torch.models.layers import (DECODE_ROWS, NEG_INF, Embed, RMSNorm, _empty, pad_rows,
+                                             top_k_indices)
+from mraudio_tpu_torch.ops.attention import _bmm_f32, chunked_attention, flash_attention
 from mraudio_tpu_torch.ops.gemv import decode_gemv, supports
 
 
@@ -75,6 +81,37 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     else:
         y = x2.float() @ w.float()
     return y.reshape(x.shape[:-1] + (w.shape[-1],))
+
+
+def observation_scores(q_obs, k_full, k_scale, kv_valid, q_start: int, score) -> torch.Tensor:
+    """SnapKV's observation-window statistic: ``score`` (B, KV) plus, per
+    cache column, the softmax mass that the queries ``q_obs`` (B, W, H, D),
+    at absolute columns ``[q_start, q_start + W)``, put on it, summed over
+    heads and queries.  Causal against the columns, masked by ``kv_valid``
+    (B, KV), which also zeroes the rows of padding queries; K's scale
+    (B, H, KV) multiplies the f32 logits.  Heads go 4 at a time (each
+    softmax is per head, as in the reference), so no (B, H, W, KV) tile
+    is made."""
+    b, w, h, d = q_obs.shape
+    kv_len = k_full.shape[1]
+    dev = q_obs.device
+    cols = torch.arange(kv_len, device=dev)
+    ok = (cols[None, :] <= (q_start + torch.arange(w, device=dev))[:, None])[None, None]
+    if kv_valid is not None:
+        ok = ok & (kv_valid[:, None, None, :] > 0)
+        q_valid = kv_valid[:, q_start:q_start + w].to(torch.float32)[:, None, :, None]
+    hc = 4 if h % 4 == 0 else 1
+    for i in range(0, h, hc):
+        q_c = q_obs[:, :, i:i + hc].transpose(1, 2).reshape(b * hc, w, d)
+        k_c = k_full[:, :, i:i + hc].to(q_obs.dtype).transpose(1, 2).reshape(b * hc, kv_len, d)
+        logits = _bmm_f32(q_c, k_c.transpose(1, 2)).view(b, hc, w, kv_len) * (d ** -0.5)
+        if k_scale is not None:
+            logits = logits * k_scale[:, i:i + hc, None, :]
+        probs = torch.softmax(torch.where(ok, logits, NEG_INF), dim=-1)
+        if kv_valid is not None:
+            probs = probs * q_valid
+        score = score + probs.sum(dim=(1, 2))
+    return score
 
 
 class LlamaLinear(nn.Module):
@@ -153,7 +190,7 @@ class LlamaAttention(nn.Module):
         self.o_proj = lin("o_proj", cfg.hidden_size)
 
     def forward(self, x, mask, positions, cache=None, cache_index=None,
-                kv_valid=None, causal=False):
+                kv_valid=None, causal=False, obs_start=None):
         cfg = self.cfg
         b, s, _ = x.shape
         h, d, kv_h = cfg.num_heads, cfg.head_dim, cfg.num_kv_heads
@@ -197,6 +234,14 @@ class LlamaAttention(nn.Module):
             else:
                 write("k", k)
                 write("v", v)
+            if "valid" in cache:
+                # a compacted cache: layers keep different columns, so each
+                # carries its own validity; new tokens are valid everywhere
+                write("valid", torch.ones((b, s), dtype=torch.int32, device=x.device))
+                layer_valid = cache["valid"]
+                if kv_valid is not None:
+                    kv_valid = kv_valid * layer_valid
+                mask = mask & (layer_valid[:, None, None, :] > 0)
             k_full, v_full = cache["k"], cache["v"]
             q_offset = 0 if per_row else cache_index
         else:
@@ -210,6 +255,20 @@ class LlamaAttention(nn.Module):
             if quantized:
                 k_scale = k_scale.repeat_interleave(rep, dim=1)
                 v_scale = v_scale.repeat_interleave(rep, dim=1)
+
+        if (cfg.kv_keep > 0 and cache is not None and not per_row and "valid" not in cache
+                and obs_start is not None):
+            # the prefill under compaction: the SnapKV statistic of the
+            # queries from absolute column obs_start on, accumulated over
+            # segments so that a segmented prefill scores as one shot
+            prev = cache.get("obs_score")
+            if prev is None:
+                prev = torch.zeros((b, k_full.shape[1]), dtype=torch.float32, device=x.device)
+            lo = max(obs_start - q_offset, 0)
+            if lo < s:
+                prev = observation_scores(q[:, lo:], k_full, k_scale, kv_valid, q_offset + lo,
+                                          prev)
+            cache["obs_score"] = prev
 
         streaming = (cfg.attention_impl in ("chunked", "pallas") and kv_valid is not None
                      and ((s > 1 and causal) or (s == 1 and quantized)))
@@ -263,9 +322,9 @@ class LlamaBlock(nn.Module):
         self.mlp = LlamaMlp(cfg, lora)
 
     def forward(self, x, mask, positions, cache=None, cache_index=None,
-                kv_valid=None, causal=False):
+                kv_valid=None, causal=False, obs_start=None):
         h, cache = self.attn(self.input_norm(x), mask, positions, cache, cache_index,
-                             kv_valid=kv_valid, causal=causal)
+                             kv_valid=kv_valid, causal=causal, obs_start=obs_start)
         x = x + h
         return x + self.mlp(self.post_attn_norm(x)), cache
 
@@ -278,8 +337,7 @@ class LlamaModel(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, lora: Optional[LoraConfig] = None):
         super().__init__()
-        for flag, on in (("scan_layers", cfg.scan_layers), ("kv_keep", cfg.kv_keep),
-                         ("mlp_seq_chunk", cfg.mlp_seq_chunk)):
+        for flag, on in (("scan_layers", cfg.scan_layers), ("mlp_seq_chunk", cfg.mlp_seq_chunk)):
             if on:
                 raise NotImplementedError(f"LlamaConfig.{flag} is not ported yet")
         if cfg.kv_quant not in ("none", "int8"):
@@ -304,24 +362,80 @@ class LlamaModel(nn.Module):
         return out
 
     def forward(self, inputs_embeds, mask, positions, cache=None, cache_index=None,
-                return_hidden: bool = False, kv_valid=None, causal: bool = False):
+                return_hidden: bool = False, kv_valid=None, causal: bool = False,
+                obs_start: int | None = None):
+        """``obs_start``: under ``cfg.kv_keep``, the absolute column where
+        the prefill's SnapKV observation window starts."""
         x = inputs_embeds.to(self.dtype)
         for i, block in enumerate(self.layers):
             x, _ = block(x, mask, positions, cache[i] if cache is not None else None,
-                         cache_index, kv_valid=kv_valid, causal=causal)
+                         cache_index, kv_valid=kv_valid, causal=causal, obs_start=obs_start)
         x = self.final_norm(x)
         if return_hidden:
             return x, cache
         return self.logits(x), cache
 
 
-def init_cache(cfg: LlamaConfig, batch: int, max_len: int, device="cuda") -> list:
+def _compact_layer(layer: dict, kv_valid, keep: int, sink: int, obs: int, prefix_len: int,
+                   extra_cols: int) -> dict:
+    """Top-``keep`` gather of one layer's cache columns by its prefill
+    observation-window scores, in column order, followed by
+    ``extra_cols`` zero columns; with a per-layer ``valid`` leaf (rows
+    with fewer than ``keep`` valid columns mark the surplus invalid).  The
+    first ``sink`` and the last ``obs`` prefix columns are always kept;
+    invalid columns lose every tie."""
+    score = layer["obs_score"][:, :prefix_len].float()
+    col = torch.arange(prefix_len, device=score.device)
+    score = torch.where(((col < sink) | (col >= prefix_len - obs))[None, :], 1e30, score)
+    score = torch.where(kv_valid[:, :prefix_len] > 0, score, -1e30)
+    idx = torch.sort(top_k_indices(score, keep), dim=-1).values
+
+    def gather(x):                      # columns on axis 1
+        ix = idx.reshape(idx.shape + (1,) * (x.ndim - 2)).expand((-1, -1) + x.shape[2:])
+        g = x[:, :prefix_len].gather(1, ix)
+        return F.pad(g, (0, 0) * (x.ndim - 2) + (0, extra_cols))
+
+    def gather_scale(x):                # (B, H, S): columns last
+        g = x[:, :, :prefix_len].gather(2, idx[:, None, :].expand(-1, x.shape[1], -1))
+        return F.pad(g, (0, extra_cols))
+
+    new = {name: gather(layer[name]) for name in ("k", "v")}
+    for name in ("k_scale", "v_scale"):
+        if name in layer:
+            new[name] = gather_scale(layer[name])
+    new["valid"] = gather(kv_valid.to(torch.int32))
+    return new
+
+
+def compaction_sizes(cfg: LlamaConfig, prefix_len: int) -> tuple:
+    """``(keep, sink, obs)`` of a prefix: the budget and the protected
+    regions, clamped to the prefix and the budget."""
+    keep = min(cfg.kv_keep, prefix_len)
+    sink = min(cfg.kv_keep_sink, keep)
+    return keep, sink, min(cfg.kv_keep_obs, prefix_len, max(keep - sink, 0))
+
+
+def compact_cache(cfg: LlamaConfig, cache: list, kv_valid, prefix_len: int,
+                  extra_cols: int) -> list:
+    """Post-prefill KV compaction (``cfg.kv_keep``, SnapKV): ``cache`` is
+    the prefill cache whose layers carry ``obs_score``, ``kv_valid`` the
+    (B, KV) prefix validity.  Each layer keeps its own columns.  Returns a
+    fresh cache of ``keep + extra_cols`` columns per layer whose ``valid``
+    leaf the attention reads."""
+    keep, sink, obs = compaction_sizes(cfg, prefix_len)
+    return [_compact_layer(layer, kv_valid, keep, sink, obs, prefix_len, extra_cols)
+            for layer in cache]
+
+
+def init_cache(cfg: LlamaConfig, batch: int, max_len: int, device="cuda",
+               valid: bool = False) -> list:
     """Per-layer KV cache dicts: (B, max_len, kv_heads, D) values (int8
-    plus (B, kv_heads, max_len) f32 scales with ``kv_quant="int8"``)."""
+    plus (B, kv_heads, max_len) f32 scales with ``kv_quant="int8"``);
+    ``valid`` adds the compacted cache's per-layer (B, max_len) leaf."""
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     if cfg.kv_quant == "int8":
         sshape = (batch, cfg.num_kv_heads, max_len)
-        return [
+        layers = [
             {
                 "k": torch.zeros(shape, dtype=torch.int8, device=device),
                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -330,11 +444,16 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int, device="cuda") -> lis
             }
             for _ in range(cfg.num_layers)
         ]
-    if cfg.kv_quant != "none":
+    elif cfg.kv_quant != "none":
         raise NotImplementedError(f"kv_quant={cfg.kv_quant!r} is not ported yet")
-    dt = torch_dtype(cfg.dtype)
-    return [
-        {"k": torch.zeros(shape, dtype=dt, device=device),
-         "v": torch.zeros(shape, dtype=dt, device=device)}
-        for _ in range(cfg.num_layers)
-    ]
+    else:
+        dt = torch_dtype(cfg.dtype)
+        layers = [
+            {"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device)}
+            for _ in range(cfg.num_layers)
+        ]
+    if valid:
+        for layer in layers:
+            layer["valid"] = torch.zeros((batch, max_len), dtype=torch.int32, device=device)
+    return layers

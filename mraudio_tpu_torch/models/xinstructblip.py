@@ -266,11 +266,47 @@ class XInstructBLIP(nn.Module):
         prefix_mask = torch.cat([frame_mask, dur_mask.to(torch.int32)], dim=1)
         return prefix, prefix_mask
 
+    def prefix_mask_host(self, text: TextBatch, n_frms: int) -> np.ndarray:
+        """The mask :meth:`prefix_embeds` returns, computed on the host from
+        the text masks and the static token counts (cue lengths, query
+        tokens), so a caller that needs only the mask does not wait on
+        the device."""
+        cfg = self.cfg
+        b = text.prompt_mask.shape[0]
+        parts = []
+        for m in ("video", "audio"):
+            if m in cfg.modalities:
+                parts += [np.ones((b, n_frms, len(self.cue_ids[m])), np.int32),
+                          np.ones((b, n_frms, cfg.qformer.num_query_tokens), np.int32)]
+        if cfg.interleave_seconds:
+            parts.append(np.asarray(text.ts_mask, np.int32))
+        frame = np.concatenate(parts, axis=2).reshape(b, -1)
+        return np.concatenate([frame, np.asarray(text.dur_mask, np.int32),
+                               np.asarray(text.prompt_mask, np.int32)], axis=1)
+
+    @torch.inference_mode()
+    def prefix_and_prompt(self, video, audio, qformer_ids, qformer_mask, ts_ids, ts_mask,
+                          dur_ids, dur_mask, prompt_ids, prompt_mask, n_frms: int):
+        """:meth:`prefix_embeds` over arrays given one by one, each a
+        device tensor (used as it is) or a host array (copied to the
+        device): the serving encoder pass, whose inputs may already have
+        been uploaded."""
+        video, audio = (a if isinstance(a, torch.Tensor)
+                        else torch.from_numpy(np.asarray(a)).to(self.device)
+                        for a in (video, audio))
+        return self.prefix_embeds(video, audio, TextBatch(
+            qformer_ids, qformer_mask, ts_ids, ts_mask, dur_ids, dur_mask, prompt_ids,
+            prompt_mask), n_frms)
+
     def prefix_embeds(self, video_u8, audio_wave, text: TextBatch, n_frms: int):
-        """Encoders + interleave + prompt → (embeds (B, S, D), mask (B, S))."""
+        """Encoders + interleave + prompt → (embeds (B, S, D), mask (B, S)).
+        The text arrays may be host arrays or tensors already on the
+        device."""
         dev = self.device
 
         def dv(a):
+            if isinstance(a, torch.Tensor):
+                return a.to(dev)
             return torch.from_numpy(np.asarray(a)).to(dev)
 
         modal = self._encode_modality_tokens(

@@ -145,9 +145,10 @@ def chunked_attention(q, k, v, mask, causal: bool = True, block_k: int = 512,
       one-shot call.  ``q_abs`` visits every chunk;
     * a tile of at most 16 queries (a decode step, a speculative pass)
       takes every key column in one pass instead — the same function; a
-      chunk loop over so few queries is bound by its launches — with its
-      rows padded to 16 that attend nothing and are dropped.  A tile's
-      arithmetic then depends neither on how many queries share it nor on
+      chunk loop over so few queries is bound by its launches — one batch
+      row at a time, with its rows padded to 16 that attend nothing and
+      are dropped.  A tile's arithmetic then depends neither on how many
+      queries share it, nor on how many batch rows there are, nor on
       which route (``q_offset`` or ``q_abs``) gives their columns;
     * masked probabilities are exactly 0 and fully masked rows give 0.
 
@@ -197,17 +198,23 @@ def chunked_attention(q, k, v, mask, causal: bool = True, block_k: int = 512,
         pv = _bmm_f32(p.to(dtype).reshape(b * h, bq, blk), v_blk.reshape(b * h, blk, d))
         return acc * alpha + pv.view(b, h, bq, d), m_new, l_new
 
-    def one_pass(q_blk, q_pos):
-        """Every key column at once: one softmax over the whole cache."""
-        rows = q_blk.shape[2]
-        k_all = heads_major(k).to(dtype, memory_format=torch.contiguous_format)
-        v_all = heads_major(v).to(dtype, memory_format=torch.contiguous_format)
-        logits = _bmm_f32(q_blk.reshape(b * h, rows, d),
-                          k_all.reshape(b * h, kv_len, d).transpose(1, 2))
-        logits = logits.view(b, h, rows, kv_len) * scale
+    def one_pass(bi, q_row, q_pos):
+        """Every key column of batch row ``bi`` at once: one softmax over
+        its whole cache.  Rows go one at a time: the batch count of a
+        ``bmm`` and the row count of a reduction change how the card
+        groups a row's sums, so a row's bits would follow the batch."""
+        rows = q_row.shape[2]
+
+        def row(t, axis=0):
+            return t.narrow(axis, bi, 1)
+
+        k_all = heads_major(row(k)).to(dtype, memory_format=torch.contiguous_format)
+        v_all = heads_major(row(v)).to(dtype, memory_format=torch.contiguous_format)
+        logits = _bmm_f32(q_row.reshape(h, rows, d), k_all.reshape(h, kv_len, d).transpose(1, 2))
+        logits = logits.view(1, h, rows, kv_len) * scale
         if k_scale is not None:
-            logits = logits * scales_bhk(k_scale)[:, :, None, :]
-        valid = mask.bool()[:, None, None, :]
+            logits = logits * scales_bhk(row(k_scale))[:, :, None, :]
+        valid = row(mask).bool()[:, None, None, :]
         if causal:
             valid = valid & (torch.arange(kv_len, device=dev) <= q_pos)
         logits = torch.where(valid, logits, NEG_INF)
@@ -217,9 +224,9 @@ def chunked_attention(q, k, v, mask, causal: bool = True, block_k: int = 512,
         # the query's place in the tile: sum over a padded length
         l_i = torch.nn.functional.pad(p, (0, -kv_len % 16)).sum(dim=-1, keepdim=True)
         if v_scale is not None:
-            p = p * scales_bhk(v_scale)[:, :, None, :]
-        acc = _bmm_f32(p.to(dtype).reshape(b * h, rows, kv_len), v_all.reshape(b * h, kv_len, d))
-        return acc.view(b, h, rows, d), l_i
+            p = p * scales_bhk(row(v_scale))[:, :, None, :]
+        acc = _bmm_f32(p.to(dtype).reshape(h, rows, kv_len), v_all.reshape(h, kv_len, d))
+        return acc.view(1, h, rows, d), l_i
 
     num_full = kv_len // block_k
     tail_len = kv_len - num_full * block_k
@@ -244,8 +251,11 @@ def chunked_attention(q, k, v, mask, causal: bool = True, block_k: int = 512,
         if bq <= _SMALL_TILE:
             # padding rows at column -1 fail every causal test
             q_blk = torch.nn.functional.pad(q_blk, (0, 0, 0, _SMALL_TILE - bq))
-            q_pos = torch.nn.functional.pad(q_pos, (0, _SMALL_TILE - bq), value=-1)
-            acc, l_i = one_pass(q_blk.contiguous(), q_pos[:, None, :, None])
+            q_pos = torch.nn.functional.pad(q_pos, (0, _SMALL_TILE - bq), value=-1)[:, None, :, None]
+            parts = [one_pass(bi, q_blk[bi:bi + 1].contiguous(),
+                              q_pos[bi:bi + 1] if q_pos.shape[0] > 1 else q_pos)
+                     for bi in range(b)]
+            acc, l_i = (torch.cat(t) for t in zip(*parts))
         else:
             q_blk, q_pos = q_blk.contiguous(), q_pos[:, None, :, None]    # (B|1, 1, bq, 1)
             carry = (torch.zeros((b, h, bq, d), dtype=torch.float32, device=dev),
