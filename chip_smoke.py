@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--out results.json] [--only kernels,models,evaluate,serve]
+    python3 chip_smoke.py [--out results.json] [--only kernels,models,evaluate,serve,converted]
 
 Phases, each printing one JSON line with its seconds:
 
@@ -67,7 +67,8 @@ Phases, each printing one JSON line with its seconds:
     upfront encode) on 6 synthetic QVH requests, so that two slots are
     reused: 6 records on the serve schema, 0 kernel launches, the stats
     line and the peak memory;
-13. serve identities: 3 requests of the same model in-process; each
+13. serve identities: 3 requests of the same configuration in-process,
+    cut to 8 decoder layers, its LoRA B seeded non-zero; each
     request's engine tokens must equal the offline ``greedy_generate`` at
     batch 3, at pipeline depth 2 and 1, 2 steps per dispatch,
     ``spec_width`` 4 with hints and with a fourth request cancelled mid-
@@ -82,12 +83,25 @@ Phases, each printing one JSON line with its seconds:
     must lie within its limit of a dense f32 computation, and ``kv_keep``
     above the prefix length must give the uncompacted tokens;
 15. serve slice: the engine in the slice configuration, greedy and at
-    ``spec_width`` 4: 32 flash launches per admission, 224 GEMV launches
-    per dispatch, identical tokens.
+    ``spec_width`` 4: a flash launch per layer and admission, 7 GEMV
+    launches per layer and dispatch, identical tokens;
+16. converted: checkpoints in the reference's key layouts, fabricated at
+    full width with the depth cut (Vicuna 2 decoder layers, EVA-ViT-g 2
+    blocks; BEATs and the Q-Former and BLIP-2 bundles whole), converted,
+    quantized and stored (host seconds and bytes per step); the model
+    from the store equals the model from the checkpoints, bit for bit;
+    the GEMV on a converted layer's ``quantize_llama_int8`` weights; a
+    slice-configuration generate with its launch counts; the evaluate CLI
+    from the checkpoints and from the store (byte-identical JSONL, 0
+    launches); the serve CLI from the store; ``cli.parity --fabricate``
+    at tiny size, alone and against its own predictions (PASS).  Its files
+    live under ``build/converted`` and are deleted at the end.
 
 ``--only`` runs the named groups of phases (kernels: 3; models: 4-9;
-evaluate: 10-11; serve: 12-15) after the build, for debugging; such a
-run prints no summary and no ``ok`` line.
+evaluate: 10-11; serve: 12-15; converted: 16; spec_width: the probe of
+the serving engine at ``spec_width`` 20 against 1, ROADMAP C.2, which a
+full run leaves out) after the build, for debugging; such a run prints
+no summary and no ``ok`` line.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 the per-kernel summary ``{"kernels": [...]}``, and
@@ -102,6 +116,9 @@ import contextlib
 import gc
 import json
 import math
+import os
+import resource
+import shutil
 import subprocess
 import sys
 import time
@@ -655,6 +672,18 @@ def build_model(cfg, audio_cfg, device, seed):
     return cast_params_for_inference(model)
 
 
+@torch.no_grad()
+def seed_lora_b_(model, seed: int, std: float = 0.01) -> int:
+    """Every LoRA B of ``model`` seeded N(0, ``std``) in its dtype (the
+    seeded init leaves B zero, which hides the LoRA delta's bits);
+    returns the count of LoRA targets."""
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    targets = [m for m in model.llm.modules() if getattr(m, "lora_scale", 0)]
+    for m in targets:
+        m.lora_b.copy_(torch.randn(m.lora_b.shape, generator=gen, device=model.device) * std)
+    return len(targets)
+
+
 @contextlib.contextmanager
 def llm_settings(model, **changes):
     """``LlamaConfig`` fields changed on the language model and on every
@@ -868,6 +897,7 @@ def full_generate(dev, seed: int = 0):
     audio_cfg = AudioFrontendConfig(max_audio_seconds=DATASET_MAX_AUDIO_SECONDS["QVH"])
     t0 = time.perf_counter()
     model = build_model(cfg, audio_cfg, dev, seed)
+    lora_targets = seed_lora_b_(model, seed)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
@@ -899,6 +929,7 @@ def full_generate(dev, seed: int = 0):
     windows = [moment_str_to_list(post_process(t)) for t in texts]
     return dict(
         layers=layers, init_s=init_s, params=n_params, param_bytes=param_bytes,
+        lora_targets_nonzero_b=lora_targets,
         prefix_len=stats["prefix_len"], encode_s=stats["encode_s"],
         prefill_s=stats["prefill_s"], decode_s=stats["decode_s"], decode_steps=steps,
         wall_s=wall, clips_per_s=3 / wall,
@@ -1007,8 +1038,10 @@ def run_decoder(model, batch, **changes) -> dict:
     want = {"flash_attention": layers, "decode_gemv": gemv_launches(model.llm.cfg, passes)}
     if launches != want:
         raise AssertionError(f"{changes}: launches {launches} for {passes} passes, want {want}")
+    if not bool(torch.isfinite(stats["prefill_logits"][:, :model.llm.cfg.vocab_size]).all()):
+        raise AssertionError(f"{changes}: non-finite prefill logits")
     return dict(tokens=tokens, texts=texts, launches=launches, passes=passes,
-                committed_tokens=stats["decode_tokens"], prefill_s=stats["prefill_s"],
+                committed_tokens=stats.get("decode_tokens"), prefill_s=stats["prefill_s"],
                 decode_s=stats["decode_s"], wall_s=wall)
 
 
@@ -1227,19 +1260,27 @@ def same_tokens(results: dict, ref, eos: int, what: str) -> None:
             raise AssertionError(f"{what}: request {rid} gives {tokens}, want {want}")
 
 
-def serve_model(dev):
-    """The deployed default configuration in-process, random weights from
-    ``train.seed``, and 4 synthetic QVH requests encoded up front (device-
-    resident prefixes)."""
+# decoder layers of the in-process serving model (phases 13-15): the depth
+# cut that pays for phase 16; every check holds at any depth
+SERVE_LAYERS = 8
+
+
+def serve_model(dev, layers: int = SERVE_LAYERS):
+    """The deployed default configuration in-process at full width, cut to
+    ``layers`` decoder layers, random weights from ``train.seed`` with LoRA
+    B seeded non-zero, and 4 synthetic QVH requests encoded up front
+    (device-resident prefixes)."""
     from mraudio_tpu_torch.cli.serve import encode_requests
     from mraudio_tpu_torch.config import DataConfig, RunConfig, full_model_config
     from mraudio_tpu_torch.data.dataset import MRDataset
     from mraudio_tpu_torch.infer.evaluate import build_model as build_run_model
     from mraudio_tpu_torch.models.casting import cast_params_for_inference
 
-    cfg = RunConfig(model=full_model_config(),
+    full = full_model_config()
+    cfg = RunConfig(model=full.replace(llm=full.llm.replace(num_layers=layers)),
                     data=DataConfig.for_dataset("QVH", video_source="synthetic"))
     model = cast_params_for_inference(build_run_model(cfg, dev))
+    seed_lora_b_(model, cfg.train.seed)
     dataset = MRDataset(cfg.data, annotations=serve_annotations(4))
     requests = encode_requests(model, dataset, device_embeds=True, encode_batch=2,
                                host_ahead=0)
@@ -1436,9 +1477,10 @@ def serve_deployed_checks(model, requests, offline_tokens, kv_keep: int = 1784) 
 
 def serve_slice(model, requests) -> dict:
     """The engine in the slice configuration (flash prefill, GEMV decode
-    projections, one-shot prefill), greedy and at ``spec_width`` 4: 32
-    flash launches per admission and 224 GEMV launches per dispatch
-    (M = 4 slots, or 4 x 4 rows in a verify pass), and identical tokens."""
+    projections, one-shot prefill), greedy and at ``spec_width`` 4: a
+    flash launch per layer and admission and 7 GEMV launches per layer and
+    dispatch (M = 4 slots, or 4 x 4 rows in a verify pass), and identical
+    tokens."""
     from mraudio_tpu_torch.infer.serving import ContinuousBatcher
 
     llm, eos = model.llm, model.llm_tokenizer.eos_token_id
@@ -1466,12 +1508,217 @@ def serve_slice(model, requests) -> dict:
     return dict(tokens_identical=True, **runs)
 
 
+def spec_width_probe(model, requests, width: int = 20) -> dict:
+    """ROADMAP C.2 on the card: the engine at ``spec_width`` ``width``, its
+    limit and slot slack widened to ``max(16, width)``, against
+    ``spec_width`` 1, the same requests.  A reading, not a check: the
+    engine refuses ``spec_width`` > 16 unless this keeps the tokens."""
+    import mraudio_tpu_torch.infer.serving as serving
+
+    llm, eos = model.llm, model.llm_tokenizer.eos_token_id
+    reqs = [r for r, _ in requests[:3]]
+    s = reqs[0].prefix_embeds.shape[0]
+    runs = {}
+    slack = serving.MAX_SPEC_WIDTH
+    for w in (1, width):
+        serving.MAX_SPEC_WIDTH = max(slack, w)
+        try:
+            engine = serving.ContinuousBatcher(llm, s, model.cfg.max_new_tokens, eos,
+                                               max_slots=4, spec_width=w)
+        finally:
+            serving.MAX_SPEC_WIDTH = slack
+        tokens, dispatches, secs = drive_engine(engine, reqs)
+        engine.close()
+        runs[w] = dict(tokens=tokens, dispatches=dispatches, seconds=secs)
+    first_diff = {}
+    for rid, want in runs[1]["tokens"].items():
+        got = runs[width]["tokens"][rid]
+        first_diff[rid] = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                               None if len(got) == len(want) else min(len(got), len(want)))
+    return dict(spec_width=width, slack=max(slack, width), layers=llm.cfg.num_layers,
+                tokens_identical=all(v is None for v in first_diff.values()),
+                first_differing_token=first_diff,
+                dispatches={w: r["dispatches"] for w, r in runs.items()},
+                seconds={w: r["seconds"] for w, r in runs.items()})
+
+
+# --------------------------------------------------------------------------
+# Phase 16: converted weights
+# --------------------------------------------------------------------------
+
+# the depth cut of the fabricated checkpoints: f32 files of the whole 7B
+# model would take ~31 GB and most of the time limit
+CONVERTED_LAYERS = {"llm decoder layers": 2, "EVA-ViT-g blocks": 2}
+
+
+def converted_config(**weights):
+    """``full_model_config()`` at full width with the depth cut, the QVH
+    data configuration with synthetic video, and ``weights`` (RunConfig
+    weight fields)."""
+    from mraudio_tpu_torch.config import DataConfig, RunConfig, full_model_config
+
+    m = full_model_config()
+    m = m.replace(llm=m.llm.replace(num_layers=CONVERTED_LAYERS["llm decoder layers"]),
+                  vit=m.vit.replace(depth=CONVERTED_LAYERS["EVA-ViT-g blocks"]))
+    return RunConfig(model=m, data=DataConfig.for_dataset("QVH", video_source="synthetic"),
+                     **weights)
+
+
+def _host_peak_gb() -> float:
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def converted(dev) -> dict:
+    """Phase 16 under ``build/converted``, deleted at the end."""
+    root = Path(__file__).resolve().parent / "build" / "converted"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        return _converted(dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _converted(dev, root: Path) -> dict:
+    from mraudio_tpu_torch.cli import convert, parity
+    from mraudio_tpu_torch.cli import evaluate as cli_evaluate
+    from mraudio_tpu_torch.cli import serve as cli_serve
+    from mraudio_tpu_torch.eval.span_utils import load_jsonl
+    from mraudio_tpu_torch.models.casting import cast_params_for_inference
+    from mraudio_tpu_torch.models.convert_weights import WEIGHT_FIELDS, load_pretrained_params
+    from mraudio_tpu_torch.models.fabricate import fabricate_checkpoint_dir
+    from mraudio_tpu_torch.models.factory import build_model as build_backbone
+
+    steps = {}
+
+    def step(name, t0, nbytes):
+        torch.cuda.synchronize()
+        steps[name] = dict(host_s=time.perf_counter() - t0, bytes=nbytes,
+                           host_peak_rss_gb=_host_peak_gb())
+
+    bare = converted_config()
+    t = time.perf_counter()
+    paths = fabricate_checkpoint_dir(bare.model, str(root / "ckpt"), seed=0)
+    step("fabricate", t, sum(os.path.getsize(p) for p in paths.values()))
+    cfg = converted_config(**{WEIGHT_FIELDS[r]: p for r, p in paths.items()})
+
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = load_pretrained_params(build_backbone(cfg, dev), cfg)
+    step("load_convert_quantize", t, steps["fabricate"]["bytes"])
+    n_params = sum(p.numel() for p in model.parameters())
+    t = time.perf_counter()
+    store = convert.save_param_store(str(root / "store.pt"), model, convert.store_meta(cfg))
+    step("store_save", t, os.path.getsize(store))
+    t = time.perf_counter()
+    from_store = convert.resolve_params(build_backbone(bare, dev), bare, store)
+    step("store_load", t, os.path.getsize(store))
+    compared = 0
+    for (name, p), (name2, q) in zip(model.named_parameters(), from_store.named_parameters()):
+        if name != name2 or p.dtype != q.dtype or not torch.equal(p, q):
+            raise AssertionError(f"converted: {name} from the store differs from the checkpoints'")
+        compared += 1
+    del from_store
+
+    # the GEMV on one converted layer's quantize_llama_int8 weights
+    gen = torch.Generator(device=dev).manual_seed(6)
+    layer0 = model.llm.layers[0]
+    gemv = {}
+    for name, proj in (("q_proj", layer0.attn.q_proj), ("gate_proj", layer0.mlp.gate_proj),
+                       ("down_proj", layer0.mlp.down_proj)):
+        if not bool((proj.w_int8.abs().amax(dim=0) == 127).all()):
+            raise AssertionError(f"converted {name}: a column's absmax is not 127")
+        x = torch.randn((3, proj.in_features), generator=gen, device=dev).to(torch.bfloat16)
+        gemv[name] = gemv_identity(x, proj.w_int8, proj.scale, f"converted layer 0 {name}")
+
+    # the slice configuration's generate on the converted model
+    cast_params_for_inference(model)
+    batch = qvh_batch(3, bare.data.n_frms, bare.model.vit.image_size,
+                      bare.data.audio.max_audio_seconds, bare.data.audio.sampling_rate, seed=1)
+    with llm_settings(model, attention_impl="pallas", decode_gemv="pallas", prefill_chunk=0):
+        generate = run_decoder(model, batch)
+    generate = dict(_summary(generate), peak_mem_bytes=torch.cuda.max_memory_allocated())
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the evaluate CLI from the checkpoints, then from the store
+    with_paths, without = root / "config_checkpoints.json", root / "config_store.json"
+    with_paths.write_text(json.dumps(converted_config(**{
+        WEIGHT_FIELDS[r]: paths[r] for r in ("vit", "video_qformer", "audio_qformer", "blip2")
+    }).to_dict()))
+    without.write_text(json.dumps(bare.to_dict()))
+    anns = [{"vid": f"v{i}", "qid": i, "query": QUERIES[i % 3], "duration": 150,
+             "relevant_windows": [[10.0 + 24 * i, 34.0 + 24 * i]]} for i in range(5)]
+    gt = root / "annotations.jsonl"
+    gt.write_text("".join(json.dumps(a) + "\n" for a in anns))
+    evaluate = {}
+    for name, extra in (("checkpoints", ["--config", str(with_paths), "--model-path", paths["llm"],
+                                         "--audio-encoder", paths["beats"]]),
+                        ("store", ["--config", str(without), "--params-store", store])):
+        set_launches(0)
+        t = time.perf_counter()
+        result = cli_evaluate.main(["--annotation-file", str(gt), "--output-file",
+                                    str(root / f"{name}.jsonl"), "--batch-size", "3",
+                                    "--video-source", "synthetic", *extra])
+        torch.cuda.synchronize()
+        evaluate[name] = dict(wall_s_with_load=time.perf_counter() - t,
+                              clips_per_sec=result["clips_per_sec"], launches=read_launches())
+        if evaluate[name]["launches"] != {"flash_attention": 0, "decode_gemv": 0}:
+            raise AssertionError(f"converted evaluate ({name}) launched kernels")
+        if [r["qid"] for r in result["records"]] != list(range(5)):
+            raise AssertionError(f"converted evaluate ({name}): {len(result['records'])} records")
+    if (root / "checkpoints.jsonl").read_bytes() != (root / "store.jsonl").read_bytes():
+        raise AssertionError("converted evaluate: the store's predictions differ from the "
+                             "checkpoints'")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the serve CLI from the store
+    ann4 = root / "serve.jsonl"
+    ann4.write_text("".join(json.dumps(a) + "\n" for a in serve_annotations(4)))
+    set_launches(0)
+    t = time.perf_counter()
+    serve_stats = cli_serve.main(["--annotation-file", str(ann4), "--output-file",
+                                  str(root / "served.jsonl"), "--config", str(without),
+                                  "--params-store", store, "--video-source", "synthetic"])
+    torch.cuda.synchronize()
+    serve = dict(stats=serve_stats, wall_s_with_load=time.perf_counter() - t,
+                 launches=read_launches())
+    if serve["launches"] != {"flash_attention": 0, "decode_gemv": 0}:
+        raise AssertionError("converted serve launched kernels")
+    check_records(load_jsonl(str(root / "served.jsonl")), 4, "converted serve")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the parity CLI at tiny size on the card: alone, then against itself
+    tiny_gt = root / "parity_annotations.jsonl"
+    tiny_gt.write_text("".join(json.dumps(a) + "\n" for a in anns[:3]))
+    common = ["--model-size", "tiny", "--annotation", str(tiny_gt), "--video-source",
+              "synthetic", "--num-workers", "1"]
+    first = parity.main(["--fabricate", "--output-dir", str(root / "parity1"), *common])
+    second = parity.main(["--ckpt-dir", str(root / "parity1" / "fabricated"), "--output-dir",
+                          str(root / "parity2"), "--reference-jsonl",
+                          str(root / "parity1" / "predictions.jsonl"), *common])
+    if first["pass"] is not None or second["pass"] is not True \
+            or second["span_diff"]["mismatched"] != 0:
+        raise AssertionError(f"parity: {first['pass']} alone, {second['pass']} against itself")
+
+    return dict(depth_cuts=CONVERTED_LAYERS, params=n_params, parameters_compared=compared,
+                store_equals_checkpoints=True, steps=steps, gemv_converted_layer0=gemv,
+                generate=generate, evaluate=evaluate, evaluate_jsonl_identical=True,
+                serve=serve, parity=dict(alone=first["pass"], against_itself=second["pass"],
+                                         span_mismatches=second["span_diff"]["mismatched"]),
+                host_peak_rss_gb=_host_peak_gb())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="also write every phase's result to this JSON file")
     ap.add_argument("--only", default="",
-                    help="comma-separated phases to run (kernels, models, evaluate, serve); "
-                         "a partial run prints no summary and no ok line")
+                    help="comma-separated phases to run (kernels, models, evaluate, serve, "
+                         "converted, spec_width); a partial run prints no summary and no ok "
+                         "line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1645,6 +1892,20 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    if "spec_width" in only:
+        t = time.perf_counter()
+        model, requests = serve_model(dev)
+        results["spec_width"] = spec_width_probe(model, requests)
+        emit({"phase": "spec_width", **results["spec_width"], "seconds": time.perf_counter() - t})
+        del model, requests
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    if on("converted"):
+        t = time.perf_counter()
+        results["converted"] = converted(dev)
+        emit({"phase": "converted", **results["converted"], "seconds": time.perf_counter() - t})
+
     if args.out:
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1, default=str)
@@ -1663,7 +1924,13 @@ def main() -> int:
                                "serve_slice_greedy":
                                    results["serve_slice"]["greedy"]["launches"][name],
                                "serve_slice_spec_4":
-                                   results["serve_slice"]["spec_4"]["launches"][name]}
+                                   results["serve_slice"]["spec_4"]["launches"][name],
+                               "converted_generate":
+                                   results["converted"]["generate"]["launches"][name],
+                               "converted_evaluate":
+                                   results["converted"]["evaluate"]["store"]["launches"][name],
+                               "converted_serve":
+                                   results["converted"]["serve"]["launches"][name]}
                         for name in ("flash_attention", "decode_gemv")}
 
     kernels = [

@@ -9,11 +9,14 @@ The JAX package's flag surface (``mraudio_tpu/cli/evaluate.py``) plus
 (int8 Vicuna-7B, int8 KV cache, ``prefill_chunk=2048``, chunked
 attention, ``decode_gemv="xla"``) and ``DataConfig.for_dataset``;
 ``tiny`` the tiny presets; ``--config`` a YAML RunConfig.  Weights are
-random from ``train.seed``.  ``--fast`` applies ``apply_fast_preset``
-(temporal-residual ViT, yuv420 wire, grammar-constrained decoding with
-``spec_width=4``).  Flags whose machinery is not ported raise
-``NotImplementedError`` naming the ROADMAP.md item that brings it, and
-so does a ``--config`` that names converted weights or a tokenizer.
+random from ``train.seed``, with the reference checkpoints the config,
+``--model-path`` (the HF Vicuna state dict) and ``--audio-encoder`` (the
+BEATs checkpoint) name converted over them; ``--params-store`` loads a
+store of ``cli/convert.py`` instead.  ``--fast`` applies
+``apply_fast_preset`` (temporal-residual ViT, yuv420 wire, grammar-
+constrained decoding with ``spec_width=4``).  Flags whose machinery is
+not ported raise ``NotImplementedError`` naming the ROADMAP.md item that
+brings it, and so does a ``--config`` that names a tokenizer.
 """
 
 from __future__ import annotations
@@ -23,9 +26,6 @@ import logging
 
 # flag → the ROADMAP.md item that ports its machinery
 _UNPORTED = {
-    "model_path": "A.8: tooling (converted weights)",
-    "audio_encoder": "A.8: tooling (converted weights)",
-    "params_store": "A.8: tooling (param store)",
     "checkpoint": "A.5: training (checkpoints)",
     "quant_encoders": "A.2: models/quant_tree.py",
     "seq_shard": "A.7: parallelism",
@@ -60,15 +60,22 @@ def build_config(args):
     )
     if args.video_source:
         data = data.replace(video_source=args.video_source)
-    return cfg.replace(model_name=args.model, data=data)
+    return cfg.replace(
+        model_name=args.model,
+        data=data,
+        llm_weights=args.model_path or cfg.llm_weights,
+        beats_weights=args.audio_encoder or cfg.beats_weights,
+    )
 
 
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description="mraudio_tpu_torch batched inference")
     parser.add_argument("--model", default="X-InstructBLIP")
-    parser.add_argument("--model-path", default="", help="converted LLM weights dir")
+    parser.add_argument("--model-path", default="",
+                        help="LLM weights: an HF Llama state dict, converted at load")
     parser.add_argument("--checkpoint", default="", help="trained checkpoint dir to overlay")
-    parser.add_argument("--audio-encoder", default="", help="converted BEATs weights")
+    parser.add_argument("--audio-encoder", default="",
+                        help="BEATs checkpoint, converted at load")
     parser.add_argument("--video-folder", default="")
     parser.add_argument("--annotation-file", required=True)
     parser.add_argument("--output-file", required=True)
@@ -85,7 +92,9 @@ def main(argv=None) -> dict:
                         help="write a torch.profiler chrome trace of the run here")
     parser.add_argument("--no-batch-fallback", action="store_true",
                         help="fail instead of halving the batch on device OOM")
-    parser.add_argument("--params-store", default="", help="prebuilt param store")
+    parser.add_argument("--params-store", default="",
+                        help="param store from mraudio_tpu_torch.cli.convert (skips the "
+                             "init and the conversion at launch)")
     parser.add_argument("--quant-encoders", action="store_true",
                         help="int8-store the frozen encoder weights")
     parser.add_argument("--seq-shard", action="store_true",
@@ -110,10 +119,15 @@ def main(argv=None) -> dict:
 
         cfg = apply_fast_preset(cfg)
 
-    from mraudio_tpu_torch.infer.evaluate import run_inference
+    from mraudio_tpu_torch.cli.convert import resolve_params
+    from mraudio_tpu_torch.infer.evaluate import refuse_unported, run_inference
+    from mraudio_tpu_torch.models.factory import build_model
 
+    refuse_unported(cfg)
+    # --model dispatch, as the reference's evaluate.py:27-31
+    model = resolve_params(build_model(cfg, args.device), cfg, args.params_store)
     result = run_inference(
-        cfg, output_file=args.output_file, batch_size=args.batch_size,
+        cfg, model=model, output_file=args.output_file, batch_size=args.batch_size,
         num_workers=args.num_workers, profile_dir=args.profile_dir or None,
         batch_fallback=not args.no_batch_fallback, device=args.device,
     )

@@ -13,8 +13,11 @@ Requests arrive all at once (burst), on a seeded Poisson process
 (``--arrival-rate``, load mode, latency from arrival) or are encoded
 inside the serve loop (``--encode-mode inline``).  ``--device``
 defaults to ``cuda`` (asking for it without a card raises); weights are
-random from ``train.seed``.  Flags whose machinery is not ported raise
-``NotImplementedError`` naming the ROADMAP.md item that brings it.
+random from ``train.seed`` with the checkpoints the config,
+``--model-path`` and ``--audio-encoder`` name converted over them, or a
+``--params-store`` of ``cli/convert.py``.  Flags whose machinery is not
+ported raise ``NotImplementedError`` naming the ROADMAP.md item that
+brings it.
 """
 
 from __future__ import annotations
@@ -34,9 +37,6 @@ logger = logging.getLogger("mraudio_tpu_torch")
 
 # flag → the ROADMAP.md item that ports its machinery
 _UNPORTED = {
-    "model_path": "A.8: tooling (converted weights)",
-    "audio_encoder": "A.8: tooling (converted weights)",
-    "params_store": "A.8: tooling (param store)",
     "checkpoint": "A.5: training (checkpoints)",
     "quant_encoders": "A.2: models/quant_tree.py",
 }
@@ -440,10 +440,13 @@ def serve(model, requests, max_slots: int, max_new_tokens: int, max_prefill_batc
 def main(argv=None):
     parser = argparse.ArgumentParser(description="mraudio_tpu_torch serving CLI")
     parser.add_argument("--model", default="X-InstructBLIP")
-    parser.add_argument("--model-path", default="", help="converted LLM weights dir")
+    parser.add_argument("--model-path", default="",
+                        help="LLM weights: an HF Llama state dict, converted at load")
     parser.add_argument("--checkpoint", default="", help="trained checkpoint dir to overlay")
-    parser.add_argument("--params-store", default="", help="prebuilt param store")
-    parser.add_argument("--audio-encoder", default="", help="converted BEATs weights")
+    parser.add_argument("--params-store", default="",
+                        help="param store from mraudio_tpu_torch.cli.convert")
+    parser.add_argument("--audio-encoder", default="",
+                        help="BEATs checkpoint, converted at load")
     parser.add_argument("--video-folder", default="")
     parser.add_argument("--annotation-file", required=True)
     parser.add_argument("--output-file", default="")
@@ -463,7 +466,8 @@ def main(argv=None):
                              "row holds its slot until the window ends)")
     parser.add_argument("--spec-width", type=int, default=1,
                         help="self-speculative width: each pass verifies W-1 lookup-drafted "
-                             "tokens per slot (token-identical)")
+                             "tokens per slot (token-identical); at most 16, since a wider "
+                             "verify pass gives other tokens on the card (ROADMAP.md C.3)")
     parser.add_argument("--pipeline-depth", type=int, default=2,
                         help="decode dispatches in flight on the greedy path: 2 reads each "
                              "dispatch's tokens one dispatch late; 1 reads them at once")
@@ -503,10 +507,12 @@ def main(argv=None):
 
     logging.basicConfig(level=logging.INFO)
 
+    from mraudio_tpu_torch.cli.convert import resolve_params
     from mraudio_tpu_torch.cli.evaluate import build_config
     from mraudio_tpu_torch.data.dataset import MRDataset
-    from mraudio_tpu_torch.infer.evaluate import build_model, refuse_unported
+    from mraudio_tpu_torch.infer.evaluate import refuse_unported
     from mraudio_tpu_torch.models.casting import cast_params_for_inference
+    from mraudio_tpu_torch.models.factory import build_model
 
     args.num_chunks, args.chunk_idx, args.dataset = 1, 0, "QVH"
     cfg = build_config(args)
@@ -517,7 +523,8 @@ def main(argv=None):
     inline = args.encode_mode == "inline"
     if args.arrival_rate and inline:
         raise SystemExit("--arrival-rate is upfront-encoded load mode; use --encode-mode upfront")
-    model = cast_params_for_inference(build_model(cfg, args.device))
+    model = cast_params_for_inference(
+        resolve_params(build_model(cfg, args.device), cfg, args.params_store))
 
     dataset = MRDataset(cfg.data, annotation_path=cfg.data.annotation_file, split="eval")
     limit = args.max_requests or None

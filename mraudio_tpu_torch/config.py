@@ -4,7 +4,10 @@ The same dataclasses, field names and defaults as the JAX package's
 configuration, restricted to what the X-InstructBLIP generate path and
 the evaluate driver read.  PyYAML is imported only inside
 :meth:`from_yaml`/:meth:`to_yaml`, so importing the configuration needs
-nothing beyond the standard library.
+nothing beyond the standard library.  :meth:`from_yaml` reads a config
+written as JSON (which is YAML) with ``json``, so such a config needs no
+PyYAML and keeps JSON's number syntax (PyYAML reads ``1e-06`` as a
+string).
 """
 
 from __future__ import annotations
@@ -32,10 +35,17 @@ class _ConfigBase:
 
     @classmethod
     def from_yaml(cls, path: str):
-        import yaml
+        import json
 
         with open(path) as f:
-            return cls.from_dict(yaml.safe_load(f) or {})
+            text = f.read()
+        try:
+            data = json.loads(text)
+        except json.JSONDecodeError:
+            import yaml
+
+            data = yaml.safe_load(text)
+        return cls.from_dict(data or {})
 
     def to_yaml(self, path: str) -> None:
         import yaml

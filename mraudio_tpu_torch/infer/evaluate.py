@@ -42,35 +42,28 @@ logger = logging.getLogger("mraudio_tpu_torch")
 
 _STAT_KEYS = ("prefix_len", "encode_s", "prefill_s", "prefill_segments", "decode_s",
               "decode_steps", "decode_tokens")
-# RunConfig's paths to converted weights and the tokenizer: the port cannot
-# load them, so a config that names one is refused, never run at random
-_WEIGHT_FIELDS = ("llm_weights", "vit_weights", "beats_weights", "video_qformer_weights",
-                  "audio_qformer_weights", "blip2_stage1_weights", "tokenizer_path")
 
 
 def build_model(cfg: RunConfig, device="cuda"):
-    """X-InstructBLIP with seeded random weights (``cfg.train.seed``) on
-    ``device``.  Loading converted weights is not ported."""
-    from mraudio_tpu_torch.models.convert_jax import init_random_
-    from mraudio_tpu_torch.models.xinstructblip import XInstructBLIP
+    """The backbone ``cfg.model_name`` names on ``device``: seeded random
+    weights (``cfg.train.seed``) with every checkpoint the config names
+    overlaid (``convert_weights.load_pretrained_params``), uncast."""
+    from mraudio_tpu_torch.models import factory
+    from mraudio_tpu_torch.models.convert_weights import load_pretrained_params
 
-    key = cfg.model_name.lower().replace("-", "").replace("_", "").replace(" ", "")
-    if key not in ("xinstructblip", "instructblip", "x"):
-        raise NotImplementedError(f"model {cfg.model_name!r} is not ported yet "
-                                  "(ROADMAP.md A.6: VideoLLaMA)")
-    model = XInstructBLIP(cfg.model, audio_cfg=cfg.data.audio, device=device)
-    return init_random_(model, seed=cfg.train.seed)
+    return load_pretrained_params(factory.build_model(cfg, device), cfg)
 
 
 def refuse_unported(cfg: RunConfig) -> None:
     """Raise ``NotImplementedError``, naming the ROADMAP.md item, for a
-    config that asks for what the port cannot do yet: converted weights
-    or a tokenizer path, int8 encoders, a mesh, the saliency head."""
-    named = [f for f in _WEIGHT_FIELDS if getattr(cfg, f)]
-    if named:
+    config that asks for what the port does not do: a tokenizer path,
+    int8 encoders, a mesh, the saliency head."""
+    if cfg.tokenizer_path:
         raise NotImplementedError(
-            f"loading converted weights ({', '.join(named)}) is not ported yet "
-            "(ROADMAP.md A.8: tooling); leave them empty for seeded random weights")
+            "RunConfig.tokenizer_path is not read: the JAX package builds its models with "
+            "ByteTokenizer and reads the field nowhere, so the port refuses it rather than "
+            "ignore it (ROADMAP.md C.3); load a tokenizer with "
+            "text.tokenizer.load_llama_tokenizer and pass it to the model instead")
     if cfg.quant_encoders:
         raise NotImplementedError("RunConfig.quant_encoders is not ported yet "
                                   "(ROADMAP.md A.2: models/quant_tree.py)")
@@ -97,10 +90,10 @@ def run_inference(
     'batches'}``: ``stages`` is the :class:`StageTimes` summary and
     ``batches`` holds each batch's ``generate_submit`` stats.
 
-    Without ``model``, builds one on ``device`` with seeded random
-    weights.  A config that names converted weights or a tokenizer path
-    raises ``NotImplementedError``.  Parameters are cast for inference in
-    place.
+    Without ``model``, builds one on ``device`` with :func:`build_model`
+    (seeded random weights and the checkpoints ``cfg`` names).  A config
+    that names a tokenizer path raises ``NotImplementedError``.
+    Parameters are cast for inference in place.
     ``batch_fallback``: on ``torch.cuda.OutOfMemoryError`` the driver
     frees the allocator's cache, halves the batch size and restarts the
     whole pass (records are written only after a pass completes)."""

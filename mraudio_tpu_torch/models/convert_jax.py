@@ -13,7 +13,13 @@ port's modules, which mirror the flax scope names:
 * the BEATs ``pos_conv`` kernel (k, in/groups, out) becomes torch's
   (out, in/groups, k);
 * ``Embed.embedding``, ``w_int8``/``scale``, ``lora_a``/``lora_b`` copy
-  as they are, in the dtypes given (f32, bf16, int8).
+  as they are, in the dtypes given (f32, f16, bf16, int8).
+
+:func:`overlay_jax_params_` copies a tree that covers part of the module
+(a converted checkpoint, ``models/convert_weights.py``), and
+:func:`flax_params` gives the inverse: every parameter under its
+``'/'``-joined flax path in the flax layout, the flat names of the JAX
+param store (``cli/convert.py`` writes the port's store with them).
 
 :func:`init_random_` fills every parameter from a ``torch.Generator``
 on the parameters' device, at any width.  Its int8 weights are seeded
@@ -30,8 +36,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from mraudio_tpu_torch.models.layers import Attention, LayerNormFp32
+
 _SCOPE_RE = re.compile(r"^(layer|block|gate)_(\d+)$")
 _SCOPE_NAMES = {"layer": "layers", "block": "blocks", "gate": "gates"}
+_FLAX_SCOPES = {v: k for k, v in _SCOPE_NAMES.items()}
 _NORM_SCOPES = ("norm", "ln")
 
 
@@ -54,7 +63,9 @@ def torch_name(path: tuple) -> str:
     return ".".join(parts)
 
 
-def _to_tensor(a: np.ndarray) -> torch.Tensor:
+def _to_tensor(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a
     a = np.array(a, order="C")  # a writable copy: device_get arrays are read-only
     if a.dtype.name == "bfloat16":  # ml_dtypes.bfloat16 from jax.device_get
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
@@ -62,25 +73,71 @@ def _to_tensor(a: np.ndarray) -> torch.Tensor:
 
 
 @torch.no_grad()
-def load_jax_params_(module: nn.Module, tree: dict) -> nn.Module:
-    """Copy a JAX parameter tree (nested dicts of numpy arrays) into
-    ``module``; every parameter must be covered exactly once."""
+def overlay_jax_params_(module: nn.Module, tree: dict) -> set:
+    """Copy every leaf of a JAX parameter tree (nested dicts of numpy
+    arrays or tensors) into ``module``, each in the leaf's own dtype; the
+    tree may cover part of the module.  Returns the port names covered."""
     params = dict(module.named_parameters())
     seen = set()
     for path, arr in _flatten(tree):
         name = torch_name(path)
         if name not in params:
             raise KeyError(f"JAX parameter {'/'.join(path)} has no port counterpart {name!r}")
-        a = np.asarray(arr)
+        t = _to_tensor(arr)
         if name.endswith("pos_conv.kernel"):
-            a = a.transpose(2, 1, 0)
+            t = t.permute(2, 1, 0)
         p = params[name]
-        params[name].data = _to_tensor(a.reshape(p.shape)).to(p.device)
+        # a tensor leaf (the param store's) is copied, never shared
+        p.data = t.reshape(p.shape).to(p.device, copy=isinstance(arr, torch.Tensor)).contiguous()
         seen.add(name)
-    missing = sorted(set(params) - seen)
+    return seen
+
+
+def load_jax_params_(module: nn.Module, tree: dict) -> nn.Module:
+    """Copy a JAX parameter tree into ``module``; every parameter must be
+    covered exactly once."""
+    seen = overlay_jax_params_(module, tree)
+    missing = sorted(set(dict(module.named_parameters())) - seen)
     if missing:
         raise KeyError(f"port parameters missing from the JAX tree: {missing[:8]}")
     return module
+
+
+def _flax_scopes(parts: list) -> list:
+    out, i = [], 0
+    while i < len(parts):
+        if parts[i] in _FLAX_SCOPES and i + 1 < len(parts) and parts[i + 1].isdigit():
+            out.append(f"{_FLAX_SCOPES[parts[i]]}_{parts[i + 1]}")
+            i += 2
+        else:
+            out.append(parts[i])
+            i += 1
+    return out
+
+
+def flax_params(module: nn.Module) -> dict:
+    """``{'/'-joined flax path: tensor}`` for every parameter of
+    ``module``, in the flax layout (the inverse of :func:`torch_name` and
+    of the reshapes :func:`overlay_jax_params_` makes): views of the
+    parameters where a reshape suffices."""
+    out = {}
+    for mod_name, mod in module.named_modules():
+        parts = mod_name.split(".") if mod_name else []
+        parent = module.get_submodule(".".join(parts[:-1])) if parts else None
+        for leaf, p in mod.named_parameters(recurse=False):
+            path = _flax_scopes(parts) + (["LayerNorm_0"] if isinstance(mod, LayerNormFp32)
+                                          else []) + [leaf]
+            t = p.detach()
+            if isinstance(parent, Attention):          # flax DenseGeneral layouts
+                h, hd = parent.num_heads, parent.head_dim
+                if parts[-1] == "out":
+                    t = t.reshape(h, hd, -1) if leaf == "kernel" else t
+                else:
+                    t = t.reshape(-1, h, hd) if leaf == "kernel" else t.reshape(h, hd)
+            elif parts and parts[-1] == "pos_conv" and leaf == "kernel":
+                t = t.permute(2, 1, 0)
+            out["/".join(path)] = t
+    return out
 
 
 @torch.no_grad()

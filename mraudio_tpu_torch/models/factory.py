@@ -1,0 +1,34 @@
+"""Model factory: the ``--model`` name → the backbone module (the JAX
+package's ``models/factory.py``).
+
+The reference dispatches on ``args.model`` in both entry points
+(``evaluate.py:27-31``, ``utils/trainer.py:50-56``); the port has one
+backbone, X-InstructBLIP.  :func:`build_model` allocates its parameters
+without values: ``convert_weights.load_pretrained_params`` (seeded init
+plus the checkpoints the config names) or a param store fills them.
+"""
+
+from __future__ import annotations
+
+from mraudio_tpu_torch.config import RunConfig
+
+
+def canonical_model_name(name: str) -> str:
+    key = name.lower().replace("-", "").replace("_", "").replace(" ", "")
+    if key in ("xinstructblip", "instructblip", "x"):
+        return "X-InstructBLIP"
+    if key in ("videollama", "videollama2", "videollama2av"):
+        return "VideoLLaMA"
+    raise ValueError(f"unknown model {name!r} (expected X-InstructBLIP or VideoLLaMA)")
+
+
+def build_model(cfg: RunConfig, device="cuda", llm_tokenizer=None):
+    """The backbone named by ``cfg.model_name`` on ``device``, its
+    parameters allocated but not filled."""
+    if canonical_model_name(cfg.model_name) == "VideoLLaMA":
+        raise NotImplementedError(f"model {cfg.model_name!r} is not ported yet "
+                                  "(ROADMAP.md A.6: VideoLLaMA)")
+    from mraudio_tpu_torch.models.xinstructblip import XInstructBLIP
+
+    return XInstructBLIP(cfg.model, audio_cfg=cfg.data.audio, llm_tokenizer=llm_tokenizer,
+                         device=device)

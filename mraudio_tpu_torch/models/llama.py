@@ -165,9 +165,25 @@ class LlamaLinear(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         if self.lora_scale:
-            delta = (x.to(dt) @ self.lora_a.to(dt)) @ self.lora_b.to(dt)
-            y = y + delta * self.lora_scale
+            y = y + self.lora_delta(x.to(dt)) * self.lora_scale
         return y
+
+    def lora_delta(self, x: torch.Tensor) -> torch.Tensor:
+        """``(x @ lora_a) @ lora_b`` in ``x``'s dtype.  On CUDA a row's bits
+        must not depend on the rows beside it (the speculative decoders and
+        the serving engine reproduce greedy's tokens): a decode-shaped call
+        runs padded to ``DECODE_ROWS`` rows, as the base projection does,
+        and a longer one one batch row at a time, since the rank-r
+        products' algorithm follows their row count (an engine admission of
+        4 rows must give an offline prefill's bits at 3)."""
+        a, b = self.lora_a.to(x.dtype), self.lora_b.to(x.dtype)
+        x2 = x.reshape(-1, x.shape[-1])
+        if x2.is_cuda and x2.shape[0] > DECODE_ROWS:
+            rows = x.reshape(x.shape[0], -1, x.shape[-1])
+            delta = torch.cat([(row @ a) @ b for row in rows])
+        else:
+            delta = ((pad_rows(x2) @ a) @ b)[:x2.shape[0]]
+        return delta.reshape(x.shape[:-1] + (b.shape[-1],))
 
 
 class LlamaAttention(nn.Module):

@@ -233,33 +233,113 @@ def test_scorer_matches_jax_on_real_windows_and_saliency():
     assert ours["brief"]["MR-full-mAP"] > 0 and "HL-min-VeryGood-Hit1" in ours["brief"]
 
 
+# the flags and RunConfig fields that load converted weights, and the
+# artifacts whose leaves the model then holds: the store was converted from
+# all six, and the BLIP-2 fallback overlays after the bundles (the JAX
+# package's order), so its Q-Former leaves are the ones kept
+_LOADS = {"--model-path": ("llm",), "--audio-encoder": ("beats",),
+          "--params-store": ("vit", "beats", "blip2", "llm"),
+          "llm_weights": ("llm",), "vit_weights": ("vit",), "beats_weights": ("beats",),
+          "video_qformer_weights": ("video_qformer",), "audio_qformer_weights": ("audio_qformer",),
+          "blip2_stage1_weights": ("blip2",)}
+
+
+@pytest.fixture(scope="module")
+def fabricated(tmp_path_factory):
+    """Fabricated tiny checkpoints in the real key layouts, and the
+    port's param store of all six: ({role: path}, store path)."""
+    from mraudio_tpu_torch.cli import convert
+    from mraudio_tpu_torch.models.fabricate import fabricate_checkpoint_dir
+
+    d = tmp_path_factory.mktemp("weights")
+    paths = fabricate_checkpoint_dir(tiny_model_config(), str(d / "ckpt"))
+    store = convert.main(["--model-size", "tiny", "--device", "cpu", "--output",
+                          str(d / "store.pt"), "--model-path", paths["llm"],
+                          "--audio-encoder", paths["beats"], "--vit", paths["vit"],
+                          "--video-qformer", paths["video_qformer"],
+                          "--audio-qformer", paths["audio_qformer"], "--blip2", paths["blip2"]])
+    return paths, store
+
+
+def assert_took(model, roles, paths):
+    """``model`` (cast for inference) holds, for each role, a leaf of that
+    artifact's checkpoint, in the parameter's dtype; and a leaf of every
+    other artifact it was not given is still the seeded init's."""
+    from mraudio_tpu_torch.models.convert_weights import load_torch_state_dict
+
+    probes = {  # role → (checkpoint key, the port parameter it becomes)
+        "llm": ("model.embed_tokens.weight", model.llm.embed_tokens.embedding),
+        "beats": ("encoder.pos_conv.0.bias", model.beats.pos_conv.bias),
+        "vit": ("cls_token", model.vit.cls_token),
+        "video_qformer": ("video_query_tokens", model.video_query_tokens),
+        "audio_qformer": ("audio_query_tokens", model.audio_query_tokens),
+        "blip2": ("video_Qformer.bert.embeddings.position_embeddings.weight",
+                  model.video_qformer.position_embeddings),
+    }
+    for role, (key, param) in probes.items():
+        want = torch.from_numpy(load_torch_state_dict(paths[role])[key]).to(param.dtype)
+        got = param.detach()[:want.shape[0]].reshape(want.shape)
+        assert torch.equal(got, want) == (role in roles), (role, roles)
+
+
+def _run_cli_capturing_model(monkeypatch, argv):
+    import mraudio_tpu_torch.infer.evaluate as infer_evaluate
+
+    seen = {}
+    real = infer_evaluate.run_inference
+
+    def capture(cfg, model=None, **kw):
+        seen["model"] = model
+        return real(cfg, model=model, **kw)
+
+    monkeypatch.setattr(infer_evaluate, "run_inference", capture)
+    result = cli_evaluate.main(argv)
+    assert len(result["records"]) == 1
+    return seen["model"]
+
+
 @pytest.mark.parametrize("flag", ["--model-path=x", "--audio-encoder=x", "--params-store=x",
                                   "--checkpoint=x", "--quant-encoders",
                                   "--seq-shard", "--model=VideoLLaMA"])
-def test_cli_unported_flags_raise(flag, tmp_path):
+def test_cli_unported_flags_raise(flag, tmp_path, fabricated, monkeypatch):
+    """The flags whose machinery is not ported raise, naming their
+    ROADMAP.md item; ``--model-path``, ``--audio-encoder`` and
+    ``--params-store`` load their fabricated artifact or store."""
     gt = tmp_path / "gt.jsonl"
     gt.write_text("".join(json.dumps(a) + "\n" for a in _annotations(1)))
+    argv = ["--annotation-file", str(gt), "--output-file", str(tmp_path / "p.jsonl"),
+            "--model-size", "tiny", "--video-source", "synthetic", "--device", "cpu"]
+    name = flag.split("=")[0]
+    if name in _LOADS:
+        paths, store = fabricated
+        value = store if name == "--params-store" else paths[_LOADS[name][0]]
+        model = _run_cli_capturing_model(monkeypatch, [*argv, f"{name}={value}"])
+        assert_took(model, _LOADS[name], paths)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md A."):
-        cli_evaluate.main(["--annotation-file", str(gt), "--output-file",
-                           str(tmp_path / "p.jsonl"), "--model-size", "tiny",
-                           "--video-source", "synthetic", "--device", "cpu", flag])
+        cli_evaluate.main([*argv, flag])
 
 
 @pytest.mark.parametrize("field", ["llm_weights", "vit_weights", "beats_weights",
                                    "video_qformer_weights", "audio_qformer_weights",
                                    "blip2_stage1_weights", "tokenizer_path"])
-def test_cli_config_naming_weights_raises(field, tmp_path):
-    """A JAX package YAML that names converted weights is refused, not run
-    with random weights."""
+def test_cli_config_naming_weights_raises(field, tmp_path, fabricated, monkeypatch):
+    """A JAX package YAML that names converted weights loads them (the
+    field's fabricated artifact); one that names a tokenizer is refused
+    (the JAX package reads that field nowhere), not run."""
+    paths, _ = fabricated
+    value = paths[_LOADS[field][0]] if field in _LOADS else str(tmp_path / "tokenizer")
     config = tmp_path / "run.yaml"
-    JRunConfig(model=j_tiny(), data=j_tiny_data(n_frms=4),
-               **{field: str(tmp_path / "weights")}).to_yaml(str(config))
+    JRunConfig(model=j_tiny(), data=j_tiny_data(n_frms=4), **{field: value}).to_yaml(str(config))
     gt = tmp_path / "gt.jsonl"
     gt.write_text("".join(json.dumps(a) + "\n" for a in _annotations(1)))
-    with pytest.raises(NotImplementedError, match=f"{field}.*ROADMAP.md A.8"):
-        cli_evaluate.main(["--annotation-file", str(gt), "--output-file",
-                           str(tmp_path / "p.jsonl"), "--config", str(config),
-                           "--video-source", "synthetic", "--device", "cpu"])
+    argv = ["--annotation-file", str(gt), "--output-file", str(tmp_path / "p.jsonl"),
+            "--config", str(config), "--video-source", "synthetic", "--device", "cpu"]
+    if field in _LOADS:
+        assert_took(_run_cli_capturing_model(monkeypatch, argv), _LOADS[field], paths)
+        return
+    with pytest.raises(NotImplementedError, match=f"{field}.*ROADMAP.md C.3"):
+        cli_evaluate.main(argv)
     assert not (tmp_path / "p.jsonl").exists()
 
 

@@ -514,25 +514,85 @@ def test_cli_request_timeout(ann_file, tmp_path):
     assert {r["qid"] for r in rows} | {t["qid"] for t in stats["timed_out"]} == set(range(5))
 
 
+@pytest.fixture(scope="module")
+def fabricated(tmp_path_factory):
+    """Fabricated tiny checkpoints and the port's store of all six."""
+    from mraudio_tpu_torch.cli import convert
+    from mraudio_tpu_torch.models.fabricate import fabricate_checkpoint_dir
+
+    d = tmp_path_factory.mktemp("weights")
+    paths = fabricate_checkpoint_dir(tiny_model_config(), str(d / "ckpt"))
+    store = convert.main(["--model-size", "tiny", "--device", "cpu", "--output",
+                          str(d / "store.pt"), "--model-path", paths["llm"],
+                          "--audio-encoder", paths["beats"], "--vit", paths["vit"],
+                          "--video-qformer", paths["video_qformer"],
+                          "--audio-qformer", paths["audio_qformer"], "--blip2", paths["blip2"]])
+    return paths, store
+
+
+def _serve_capturing_model(monkeypatch, ann_file, out, *extra):
+    seen = {}
+    real = cli_serve.serve
+
+    def capture(model, *args, **kw):
+        seen["model"] = model
+        return real(model, *args, **kw)
+
+    monkeypatch.setattr(cli_serve, "serve", capture)
+    stats, rows = _cli(ann_file, out, *extra)
+    assert stats["requests"] == len(rows) == 5
+    return seen["model"]
+
+
+def _holds(param, path, key) -> bool:
+    from mraudio_tpu_torch.models.convert_weights import load_torch_state_dict
+
+    want = torch.from_numpy(load_torch_state_dict(path)[key]).to(param.dtype)
+    return torch.equal(param.detach()[:want.shape[0]].reshape(want.shape), want)
+
+
 @pytest.mark.parametrize("flag", [["--model-path", "x"], ["--audio-encoder", "x"],
                                   ["--params-store", "x"], ["--checkpoint", "x"],
                                   ["--quant-encoders"], ["--model", "VideoLLaMA"]])
-def test_cli_unported_flags_raise(ann_file, tmp_path, flag):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.\d"):
-        _cli(ann_file, tmp_path / "x.jsonl", *flag)
+def test_cli_unported_flags_raise(ann_file, tmp_path, flag, fabricated, monkeypatch):
+    """Unported flags raise, naming their ROADMAP.md item; ``--model-path``,
+    ``--audio-encoder`` and ``--params-store`` load their fabricated
+    artifact or store, and the CLI serves with it."""
+    paths, store = fabricated
+    if flag[0] not in ("--model-path", "--audio-encoder", "--params-store"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.\d"):
+            _cli(ann_file, tmp_path / "x.jsonl", *flag)
+        return
+    value = {"--model-path": paths["llm"], "--audio-encoder": paths["beats"],
+             "--params-store": store}[flag[0]]
+    model = _serve_capturing_model(monkeypatch, ann_file, tmp_path / "x.jsonl", flag[0], value)
+    llm = _holds(model.llm.embed_tokens.embedding, paths["llm"], "model.embed_tokens.weight")
+    beats = _holds(model.beats.pos_conv.bias, paths["beats"], "encoder.pos_conv.0.bias")
+    vit = _holds(model.vit.cls_token, paths["vit"], "cls_token")
+    assert (llm, beats, vit) == {"--model-path": (True, False, False),
+                                 "--audio-encoder": (False, True, False),
+                                 "--params-store": (True, True, True)}[flag[0]]
 
 
 @pytest.mark.parametrize("what, item", [("mesh", "A.7"), ("llm_weights", "A.8")])
-def test_cli_config_asking_unported_raises(ann_file, tmp_path, what, item):
+def test_cli_config_asking_unported_raises(ann_file, tmp_path, what, item, fabricated,
+                                           monkeypatch):
     """A JAX package YAML with a tensor-parallel mesh (the reference's
-    serving on a TP mesh) or with converted weights is refused."""
+    serving on a TP mesh) is refused; one naming converted LLM weights
+    (the item that ported them) serves with them."""
     from mraudio_tpu.config import MeshConfig as JMeshConfig
     from mraudio_tpu.config import RunConfig as JRunConfig
 
+    paths, _ = fabricated
     extra = ({"mesh": JMeshConfig(data=1, model=2)} if what == "mesh"
-             else {what: str(tmp_path / "weights")})
+             else {what: paths["llm"]})
     config = tmp_path / "run.yaml"
     JRunConfig(model=j_tiny(), data=j_tiny_data(n_frms=4), **extra).to_yaml(str(config))
+    if what == "llm_weights":
+        model = _serve_capturing_model(monkeypatch, ann_file, tmp_path / "x.jsonl",
+                                       "--config", str(config))
+        assert _holds(model.llm.embed_tokens.embedding, paths["llm"], "model.embed_tokens.weight")
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         _cli(ann_file, tmp_path / "x.jsonl", "--config", str(config))
 
