@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--out results.json] [--only kernels,models,evaluate,serve,converted]
+    python3 chip_smoke.py [--out results.json]
+                          [--only kernels,models,evaluate,serve,converted,train]
 
 Phases, each printing one JSON line with its seconds:
 
@@ -95,10 +96,23 @@ Phases, each printing one JSON line with its seconds:
     from the checkpoints and from the store (byte-identical JSONL, 0
     launches); the serve CLI from the store; ``cli.parity --fabricate``
     at tiny size, alone and against its own predictions (PASS).  Its files
-    live under ``build/converted`` and are deleted at the end.
+    live under ``build/converted`` and are deleted at the end;
+17. train: the finetune CLI in a process of its own at full width and
+    depth in its default configuration (int8 Vicuna-7B, LoRA r 8, block
+    remat, AdamW under 2 accumulation steps, crops): 8 synthetic QVH
+    clips at batch 2, 1 epoch, validation on 2; every micro-step timed
+    (seconds per micro-step, clips/s, MFU from ``utils/flops.py``), the
+    4th traced and split by the ``encode``, ``loss_fwd_bwd`` and
+    ``optimizer`` spans; finite losses, every LoRA B moved, the
+    checkpoints written, 0 kernel launches.  Then, on the model cut to 2
+    decoder layers and 2 ViT blocks: the loss and LoRA gradients on the
+    card against the port's own CPU run (a label shift must fail), remat
+    on and off bit-identical, 4 micro-steps against 2 + preempt + 2
+    resumed bit-identical, a non-finite loss moving nothing, and the
+    evaluate CLI with ``--checkpoint`` through a JSON config.
 
 ``--only`` runs the named groups of phases (kernels: 3; models: 4-9;
-evaluate: 10-11; serve: 12-15; converted: 16; spec_width: the probe of
+evaluate: 10-11; serve: 12-15; converted: 16; train: 17; spec_width: the probe of
 the serving engine at ``spec_width`` 20 against 1, ROADMAP C.2, which a
 full run leaves out) after the build, for debugging; such a run prints
 no summary and no ``ok`` line.
@@ -845,14 +859,14 @@ def profile_generate(model, batch, unprofiled: dict, top: int = 12) -> dict:
     return phase_breakdown(trace, unprofiled, top)
 
 
-def phase_breakdown(trace: Path, unprofiled: dict, top: int = 12,
+def phase_breakdown(trace: Path, unprofiled: dict | None, top: int = 12,
                     names=("encode", "prefill", "decode")) -> dict:
     """Read (and delete) a chrome trace of one ``generate``.  For each phase
     span (``names``: ``encode``, ``prefill``, ``decode``) on the host: the device time
     of every kernel launched inside it, the union of those intervals
     (busy), and the idle share ``1 - busy / span``.  The profiler slows the
     host, so the idle share is also given against the unprofiled run's
-    phase seconds (``unprofiled[f"{phase}_s"]``)."""
+    phase seconds (``unprofiled[f"{phase}_s"]``), where there is one."""
     events = json.loads(trace.read_text())["traceEvents"]
     trace.unlink()
     spans = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
@@ -876,11 +890,13 @@ def phase_breakdown(trace: Path, unprofiled: dict, top: int = 12,
             raise AssertionError(f"profile: no device time in the {phase} span")
         ranked = sorted(per_name.items(), key=lambda kv: -kv[1][0])
         device_ms = sum(ms for ms, _ in per_name.values())
+        vs = {}
+        if unprofiled is not None:
+            vs = dict(unprofiled_ms=unprofiled[f"{phase}_s"] * 1e3,
+                      idle_share_vs_unprofiled=1 - busy / 1e3 / (unprofiled[f"{phase}_s"] * 1e3))
         phases[phase] = dict(
             span_ms=(t1 - t0) / 1e3, device_busy_ms=busy / 1e3, idle_share=1 - busy / (t1 - t0),
-            unprofiled_ms=unprofiled[f"{phase}_s"] * 1e3,
-            idle_share_vs_unprofiled=1 - busy / 1e3 / (unprofiled[f"{phase}_s"] * 1e3),
-            kernel_names=len(per_name),
+            **vs, kernel_names=len(per_name),
             top=[dict(name=name.removeprefix("void ")[:96], ms=ms, calls=calls,
                       share_of_device=ms / device_ms) for name, (ms, calls) in ranked[:top]])
     return phases
@@ -1712,13 +1728,376 @@ def _converted(dev, root: Path) -> dict:
                 host_peak_rss_gb=_host_peak_gb())
 
 
+# --------------------------------------------------------------------------
+# Phase 17: training
+# --------------------------------------------------------------------------
+
+TRAIN_CLIPS, VAL_CLIPS, TRAIN_BATCH = 8, 2, 2
+# the finetune subprocess: runs the CLI's main with every micro-step timed
+# (synchronised), the fourth traced, and prints one JSON line of readings
+_FINETUNE_RUNNER = r"""
+import json, sys, time
+import torch
+import chip_smoke
+from mraudio_tpu_torch.cli import finetune
+from mraudio_tpu_torch.train import trainer as trainer_mod
+from torch.profiler import ProfilerActivity, profile
+
+out = {"step_s": [], "seq_len": None}
+real = trainer_mod.Trainer.train_step
+trace = chip_smoke.Path(chip_smoke.__file__).resolve().parent / "build" / "profile" / "train_trace.json"
+
+def timed(self, batch):
+    m = self.model
+    if out["seq_len"] is None:
+        text = m.prepare_text(batch.text_input, batch.timestamps, batch.duration,
+                              text_output=batch.text_output)
+        n = batch.timestamps.shape[1]
+        out["seq_len"] = int(m.prefix_mask_host(text, n).shape[1] - text.prompt_mask.shape[1]
+                             + text.concat_ids.shape[1])
+        out["n_frms"] = int(n)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    if len(out["step_s"]) == 3:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            loss = real(self, batch)
+            torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t)
+        trace.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(trace))
+        out["profile_step4"] = chip_smoke.phase_breakdown(
+            trace, None, names=("encode", "loss_fwd_bwd", "optimizer"))
+    else:
+        loss = real(self, batch)
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t)
+    out["train_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    return loss
+
+trainer_mod.Trainer.train_step = timed
+chip_smoke.set_launches(0)
+t = time.perf_counter()
+summary = finetune.main(sys.argv[1:])
+torch.cuda.synchronize()
+out["wall_s"] = time.perf_counter() - t
+out["launches"] = chip_smoke.read_launches()
+out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+out["summary"] = {k: v for k, v in summary.items() if k != "results"}
+print("FINETUNE " + json.dumps(out), flush=True)
+"""
+
+
+def train_annotations(n: int, start: int = 0) -> list:
+    return [{"vid": f"t{i}", "qid": i, "query": QUERIES[i % 3], "duration": 150,
+             "relevant_windows": [[float(10 + 13 * i), float(30 + 13 * i)]]}
+            for i in range(start, start + n)]
+
+
+def finetune_cli() -> dict:
+    """The finetune CLI in a process of its own at full width and depth in
+    its default full configuration (int8 Vicuna-7B, LoRA r 8 on the seven
+    projections, block remat, AdamW under 2 accumulation steps, crops,
+    the nan guard): 8 synthetic QVH clips at batch 2 (4 micro-steps, 2
+    updates), 1 epoch, validation on 2 clips.  Every loss must be finite,
+    every LoRA B (zero at init) non-zero after the run, ``checkpoint_0``
+    and its sidecar written, ``checkpoint_best`` too exactly when the val
+    MR-full-R1-avg beat 0 (the JAX trainer's rule: random weights rarely
+    give a window that scores), and neither kernel launched.  The readings
+    are printed before the checks."""
+    from mraudio_tpu_torch.config import AudioFrontendConfig, DATASET_MAX_AUDIO_SECONDS
+    from mraudio_tpu_torch.config import full_model_config
+    from mraudio_tpu_torch.train.checkpoint import load_checkpoint
+    from mraudio_tpu_torch.utils.flops import peak_flops_for, train_step_flops
+
+    root = Path(__file__).resolve().parent / "build" / "smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    train_ann, val_ann, out = root / "train.jsonl", root / "val.jsonl", root / "out"
+    train_ann.write_text("".join(json.dumps(a) + "\n" for a in train_annotations(TRAIN_CLIPS)))
+    val_ann.write_text("".join(json.dumps(a) + "\n"
+                               for a in train_annotations(VAL_CLIPS, TRAIN_CLIPS)))
+    args = ["--model-size", "full", "--video-source", "synthetic", "--batch-size",
+            str(TRAIN_BATCH), "--max-epoch", "1", "--save-freq", "1",
+            "--train-annotation-file", str(train_ann), "--val-annotation-file", str(val_ann),
+            "--output-dir", str(out)]
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _FINETUNE_RUNNER, *args],
+                          cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                          timeout=900)
+    wall = time.perf_counter() - t
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("FINETUNE ")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"finetune CLI failed ({proc.returncode}): "
+                             f"{proc.stderr[-3000:]}")
+    run = json.loads(lines[-1][len("FINETUNE "):])
+    events = [json.loads(ln) for ln in (out / "train.jsonl").read_text().splitlines()]
+    losses = [e["loss"] for e in events if e["event"] == "train_step"]
+    val = [e for e in events if e["event"] == "val"]
+    step_s = run["step_s"]
+    median_s = float(np.median(step_s[1:4]))
+    cfg = full_model_config()
+    flops = train_step_flops(cfg, AudioFrontendConfig(
+        max_audio_seconds=DATASET_MAX_AUDIO_SECONDS["QVH"]), run["n_frms"], TRAIN_BATCH,
+        run["seq_len"], grad_checkpoint=True)
+    peak = peak_flops_for(torch.cuda.get_device_name(0))
+    trained = load_checkpoint(str(out / "checkpoint_0"))["model"]
+    lora_b = {k: v for k, v in trained.items() if k.endswith("lora_b")}
+    moved = sum(bool(v.abs().amax() > 0) for v in lora_b.values())
+    best = run["summary"]["best_metric"] > 0
+    result = dict(subprocess_wall_s=wall, cli_wall_s=run["wall_s"], losses=losses,
+                  step_s=step_s, s_per_micro_step_median_2_4=median_s,
+                  train_clips_per_s=TRAIN_BATCH / median_s, seq_len=run["seq_len"],
+                  n_frms=run["n_frms"], train_step_flops=flops,
+                  train_mfu=flops["total"] / (median_s * peak),
+                  train_peak_mem_bytes=run["train_peak_mem_bytes"],
+                  peak_mem_bytes=run["peak_mem_bytes"], val=val, lora_b_moved=moved,
+                  lora_b_leaves=len(lora_b), checkpoint_best_written=(out / "checkpoint_best")
+                  .is_file(), launches=run["launches"], profile_step4=run["profile_step4"],
+                  summary=run["summary"])
+    emit({"phase": "finetune_readings", **result})
+    if len(losses) != TRAIN_CLIPS // TRAIN_BATCH or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"finetune: losses {losses}")
+    if run["launches"] != {"flash_attention": 0, "decode_gemv": 0}:
+        raise AssertionError(f"finetune launched kernels: {run['launches']}")
+    if len(lora_b) != 7 * 32 or moved != len(lora_b):
+        raise AssertionError(f"finetune: {moved} of {len(lora_b)} LoRA B leaves moved")
+    names = ["checkpoint_0"] + (["checkpoint_best"] if best else [])
+    for name in names:
+        if not (out / name).is_file() or not (out / (name + ".meta.json")).is_file():
+            raise AssertionError(f"finetune: {name} or its sidecar is missing")
+    if (out / "checkpoint_best").exists() != best:
+        raise AssertionError(f"finetune: checkpoint_best written with best metric "
+                             f"{run['summary']['best_metric']}")
+    shutil.rmtree(root, ignore_errors=True)
+    return result
+
+
+# card (bf16) vs CPU (f32) on one micro-batch: bf16 activations round at
+# 2^-9 per op through 2 decoder layers and the encoders, so the loss is
+# held at 1% and each LoRA leaf's gradient at 10% of its norm (the
+# relative L2 error); a label shift by one must break both
+TRAIN_LOSS_RTOL = 1e-2
+TRAIN_GRAD_REL_L2 = 0.10
+IDENT_FRAMES = 8
+
+
+def identities_config(dev_dtype: str = "bfloat16", **train):
+    """The full-width model cut to the ``converted`` depth (2 decoder
+    layers, 2 ViT blocks) with the finetune CLI's remat, 8 frames per clip,
+    synthetic QVH data."""
+    from mraudio_tpu_torch.config import DataConfig, RunConfig, TrainConfig, full_model_config
+
+    m = full_model_config()
+    m = m.replace(llm=m.llm.replace(num_layers=CONVERTED_LAYERS["llm decoder layers"],
+                                    grad_checkpoint=True, dtype=dev_dtype),
+                  vit=m.vit.replace(depth=CONVERTED_LAYERS["EVA-ViT-g blocks"],
+                                    grad_checkpoint=True, dtype=dev_dtype),
+                  beats=m.beats.replace(dtype=dev_dtype), qformer=m.qformer.replace(dtype=dev_dtype))
+    data = DataConfig.for_dataset("QVH", video_source="synthetic").replace(n_frms=IDENT_FRAMES)
+    return RunConfig(model=m, data=data, train=TrainConfig(**train))
+
+
+def _loss_and_grads(trainer, batch, labels_shift: int = 0, dropout: bool = True):
+    """One micro-batch's loss and LoRA gradients through the trainer's
+    path (crop of step 0, dropout key of step 0 unless ``dropout`` is
+    off: the card's and the CPU's generators draw other masks from one
+    seed), without an update."""
+    model = trainer.model
+    arrays = list(model.device_arrays(model.loss_arrays(batch)))
+    if labels_shift:
+        arrays[10] = torch.roll(arrays[10], labels_shift, dims=1)
+    crop = trainer._sample_crops(batch, step=0)
+    key = trainer.dropout_key(0) if dropout and model.cfg.lora.dropout > 0 else None
+    loss = model._loss_fn(*arrays, crop_params=crop, dropout_key=key,
+                          n_frms=int(batch.timestamps.shape[1]))
+    grads = torch.autograd.grad(loss, list(trainer.trainable.values()))
+    return loss.detach().float().cpu(), {k: g.float().cpu()
+                                         for k, g in zip(trainer.trainable, grads)}
+
+
+def _rel_l2(a: dict, b: dict) -> float:
+    return max(float((a[k] - b[k]).norm() / b[k].norm().clamp_min(1e-30)) for k in b)
+
+
+def _state(trainer) -> dict:
+    out = {f"leaf/{k}": p.detach().clone() for k, p in trainer.trainable.items()}
+    out.update({k: v.clone() for k, v in trainer.opt.state_dict().items()})
+    return out
+
+
+def train_identities(dev) -> dict:
+    """Phase 17b under ``build/smoke_train_id``, deleted at the end."""
+    root = Path(__file__).resolve().parent / "build" / "smoke_train_id"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        return _train_identities(dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _train_identities(dev, root: Path) -> dict:
+    from mraudio_tpu_torch.cli import evaluate as cli_evaluate
+    from mraudio_tpu_torch.data.dataset import BatchLoader, MRDataset
+    from mraudio_tpu_torch.infer.evaluate import build_model as build_trained
+    from mraudio_tpu_torch.train import trainer as trainer_mod
+    from mraudio_tpu_torch.train.checkpoint import load_checkpoint
+
+    anns = train_annotations(4)
+    val = train_annotations(1, 4)
+    train_ann, val_ann = root / "train.jsonl", root / "val.jsonl"
+    train_ann.write_text("".join(json.dumps(a) + "\n" for a in anns))
+    val_ann.write_text("".join(json.dumps(a) + "\n" for a in val))
+    out = {}
+
+    def config(name, dtype="bfloat16", **train):
+        cfg = identities_config(dtype, batch_size=1, max_epoch=1, num_workers=1,
+                                output_dir=str(root / name), **train)
+        return cfg.replace(data=cfg.data.replace(train_annotation_file=str(train_ann),
+                                                 val_annotation_file=str(val_ann)))
+
+    # 1. card vs the port's CPU run on one micro-batch, from the same weights
+    t = time.perf_counter()
+    cfg = config("card")
+    model = build_trained(cfg, dev)
+    trainer = trainer_mod.Trainer(cfg, model=model, device=dev)
+    batch = next(iter(BatchLoader(MRDataset(cfg.data, annotations=anns, split="train"), 1)))
+    card_loss, card_grads = _loss_and_grads(trainer, batch, dropout=False)
+    shifted_loss, shifted_grads = _loss_and_grads(trainer, batch, labels_shift=1, dropout=False)
+    cpu_cfg = config("cpu", "float32")
+    cpu_model = build_trained(cpu_cfg, "cpu")
+    with torch.no_grad():      # the card's bf16-rounded frozen values, in f32
+        card_params = dict(model.named_parameters())
+        for name, p in cpu_model.named_parameters():
+            p.data = card_params[name].detach().to("cpu", p.dtype if p.dtype == torch.int8
+                                                     else torch.float32).clone()
+    cpu_trainer = trainer_mod.Trainer(cpu_cfg, model=cpu_model, frozen_bf16=False, device="cpu")
+    cpu_loss, cpu_grads = _loss_and_grads(cpu_trainer, batch, dropout=False)
+    cpu_trainer._restore_sigterm()
+    trainer._restore_sigterm()
+    del cpu_trainer, cpu_model
+    loss_rel = float((card_loss - cpu_loss).abs() / cpu_loss.abs())
+    grad_rel = _rel_l2(card_grads, cpu_grads)
+    ctl_loss = float((shifted_loss - cpu_loss).abs() / cpu_loss.abs())
+    ctl_grad = _rel_l2(shifted_grads, cpu_grads)
+    if not (loss_rel <= TRAIN_LOSS_RTOL and grad_rel <= TRAIN_GRAD_REL_L2):
+        raise AssertionError(f"train card vs CPU: loss {loss_rel}, grads {grad_rel}")
+    # (random weights predict near-uniform tokens, so the shifted labels'
+    # loss may stay close; their gradients may not)
+    if ctl_loss <= TRAIN_LOSS_RTOL and ctl_grad <= TRAIN_GRAD_REL_L2:
+        raise AssertionError(f"train control (labels shifted) passed: {ctl_loss}, {ctl_grad}")
+    out["card_vs_cpu"] = dict(loss_card=float(card_loss), loss_cpu=float(cpu_loss),
+                              loss_rel=loss_rel, loss_rtol=TRAIN_LOSS_RTOL,
+                              grad_rel_l2_max=grad_rel, grad_rel_l2_limit=TRAIN_GRAD_REL_L2,
+                              control_loss_rel=ctl_loss, control_grad_rel_l2=ctl_grad,
+                              seconds=time.perf_counter() - t)
+
+    # 2. grad_checkpoint on vs off: the same bits (LoRA dropout on)
+    remat_loss, remat_grads = _loss_and_grads(trainer, batch)
+    with llm_settings(model, grad_checkpoint=False):
+        plain_loss, plain_grads = _loss_and_grads(trainer, batch)
+    if not (torch.equal(plain_loss, remat_loss)
+            and all(torch.equal(plain_grads[k], remat_grads[k]) for k in remat_grads)):
+        raise AssertionError("train: grad_checkpoint on and off differ")
+    out["remat_bit_identical"] = True
+
+    # 3. four micro-steps straight vs two, checkpoint_preempt, two more
+    initial = {k: p.detach().clone() for k, p in trainer.trainable.items()}
+
+    def fresh(name, **train):
+        with torch.no_grad():
+            for k, p in initial.items():
+                dict(model.named_parameters())[
+                    trainer_mod.torch_name(tuple(k.split("/")))].copy_(p)
+        return trainer_mod.Trainer(config(name, **train), model=model, device=dev)
+
+    t = time.perf_counter()
+    straight = fresh("straight")
+    straight.train()
+    want = _state(straight)
+    first = fresh("resume")
+    real = first.train_step
+
+    def stop_after_two(b):
+        loss = real(b)
+        if first.global_step + 1 == 2:
+            first._preempt_requested = True
+        return loss
+
+    first.train_step = stop_after_two
+    summary = first.train()
+    if not summary.get("preempted"):
+        raise AssertionError(f"train: no preempt ({summary})")
+    second = fresh("resume", resume_ckpt_path=summary["preempt_ckpt"])
+    second.train()
+    got = _state(second)
+    if sorted(got) != sorted(want) or not all(torch.equal(got[k], want[k]) for k in want):
+        raise AssertionError("train: the resumed run differs from the straight run")
+    out["resume_bit_identical"] = dict(leaves_and_state=len(want),
+                                       seconds=time.perf_counter() - t)
+
+    # 4. a non-finite loss leaves the leaves and the moments untouched
+    guard = fresh("guard")
+    guard._restore_sigterm()
+    before = _state(guard)
+    real_loss = model._loss_from_tokens
+    model._loss_from_tokens = lambda *a, **k: real_loss(*a, **k) * float("nan")
+    try:
+        guard.train_step(batch)
+    finally:
+        model._loss_from_tokens = real_loss
+    after = _state(guard)
+    if not all(torch.equal(before[k], after[k]) for k in before
+               if k.startswith(("leaf/", "mu/", "nu/", "acc/"))):
+        raise AssertionError("train: a non-finite loss moved the leaves or moments")
+    out["nan_guard_untouched"] = True
+
+    # 5. the evaluate CLI with --checkpoint, through a JSON --config
+    ckpt_path = str(root / "straight" / "checkpoint_0")
+    saved = load_checkpoint(ckpt_path)["model"]
+    del trainer, straight, first, second, guard, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg_path = root / "config.json"
+    cfg_path.write_text(json.dumps(config("eval").to_dict()))
+    gt = root / "eval.jsonl"
+    gt.write_text("".join(json.dumps(a) + "\n" for a in val + anns[:1]))
+    loaded = {}
+    real_load = cli_evaluate.load_trained
+
+    def capture(m, path):
+        real_load(m, path)
+        names = dict(m.named_parameters())
+        loaded.update({k: names[trainer_mod.torch_name(tuple(k.split("/")))].detach().cpu()
+                       .clone() for k in saved})
+        return m
+
+    cli_evaluate.load_trained = capture
+    set_launches(0)
+    try:
+        result = cli_evaluate.main(["--annotation-file", str(gt), "--output-file",
+                                    str(root / "pred.jsonl"), "--config", str(cfg_path),
+                                    "--checkpoint", ckpt_path, "--video-source", "synthetic",
+                                    "--batch-size", "2", "--device", str(dev)])
+    finally:
+        cli_evaluate.load_trained = real_load
+    if not all(torch.equal(loaded[k], saved[k]) for k in saved):
+        raise AssertionError("evaluate --checkpoint: the LoRA leaves differ from the checkpoint's")
+    if [r["qid"] for r in result["records"]] != [4, 0] or read_launches() != {
+            "flash_attention": 0, "decode_gemv": 0}:
+        raise AssertionError(f"evaluate --checkpoint: {result['records']}, {read_launches()}")
+    out["evaluate_checkpoint"] = dict(records=len(result["records"]), leaves=len(saved),
+                                      leaves_bit_identical=True, launches=read_launches())
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="also write every phase's result to this JSON file")
     ap.add_argument("--only", default="",
                     help="comma-separated phases to run (kernels, models, evaluate, serve, "
-                         "converted, spec_width); a partial run prints no summary and no ok "
-                         "line")
+                         "converted, train, spec_width); a partial run prints no summary and "
+                         "no ok line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1906,6 +2285,20 @@ def main() -> int:
         results["converted"] = converted(dev)
         emit({"phase": "converted", **results["converted"], "seconds": time.perf_counter() - t})
 
+    if on("train"):
+        t = time.perf_counter()
+        results["finetune"] = finetune_cli()
+        emit({"phase": "finetune", **results["finetune"], "seconds": time.perf_counter() - t})
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()
+        results["train_identities"] = train_identities(dev)
+        emit({"phase": "train_identities", **results["train_identities"],
+              "seconds": time.perf_counter() - t})
+        gc.collect()
+        torch.cuda.empty_cache()
+
     if args.out:
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1, default=str)
@@ -1930,7 +2323,8 @@ def main() -> int:
                                "converted_evaluate":
                                    results["converted"]["evaluate"]["store"]["launches"][name],
                                "converted_serve":
-                                   results["converted"]["serve"]["launches"][name]}
+                                   results["converted"]["serve"]["launches"][name],
+                               "train": results["finetune"]["launches"][name]}
                         for name in ("flash_attention", "decode_gemv")}
 
     kernels = [

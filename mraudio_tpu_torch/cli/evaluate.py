@@ -12,7 +12,8 @@ attention, ``decode_gemv="xla"``) and ``DataConfig.for_dataset``;
 random from ``train.seed``, with the reference checkpoints the config,
 ``--model-path`` (the HF Vicuna state dict) and ``--audio-encoder`` (the
 BEATs checkpoint) name converted over them; ``--params-store`` loads a
-store of ``cli/convert.py`` instead.  ``--fast`` applies
+store of ``cli/convert.py`` instead; ``--checkpoint`` overlays the
+trained leaves of a checkpoint of ``cli/finetune.py``.  ``--fast`` applies
 ``apply_fast_preset`` (temporal-residual ViT, yuv420 wire, grammar-
 constrained decoding with ``spec_width=4``).  Flags whose machinery is
 not ported raise ``NotImplementedError`` naming the ROADMAP.md item that
@@ -26,7 +27,6 @@ import logging
 
 # flag → the ROADMAP.md item that ports its machinery
 _UNPORTED = {
-    "checkpoint": "A.5: training (checkpoints)",
     "quant_encoders": "A.2: models/quant_tree.py",
     "seq_shard": "A.7: parallelism",
 }
@@ -66,6 +66,19 @@ def build_config(args):
         llm_weights=args.model_path or cfg.llm_weights,
         beats_weights=args.audio_encoder or cfg.beats_weights,
     )
+
+
+def load_trained(model, path: str):
+    """Overlay the trained leaves of the checkpoint ``path`` (the port's
+    format, ``train/checkpoint.py``) onto ``model``."""
+    from mraudio_tpu_torch.train.checkpoint import apply_trainable, load_checkpoint
+
+    payload = load_checkpoint(path)
+    apply_trainable(model, payload["model"])
+    logging.getLogger("mraudio_tpu_torch").info(
+        "loaded trained checkpoint %s (epoch %s, %d trained leaves)",
+        path, payload.get("epoch"), len(payload["model"]))
+    return model
 
 
 def main(argv=None) -> dict:
@@ -126,6 +139,8 @@ def main(argv=None) -> dict:
     refuse_unported(cfg)
     # --model dispatch, as the reference's evaluate.py:27-31
     model = resolve_params(build_model(cfg, args.device), cfg, args.params_store)
+    if args.checkpoint:
+        load_trained(model, args.checkpoint)
     result = run_inference(
         cfg, model=model, output_file=args.output_file, batch_size=args.batch_size,
         num_workers=args.num_workers, profile_dir=args.profile_dir or None,

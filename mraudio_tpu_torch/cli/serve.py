@@ -15,7 +15,8 @@ inside the serve loop (``--encode-mode inline``).  ``--device``
 defaults to ``cuda`` (asking for it without a card raises); weights are
 random from ``train.seed`` with the checkpoints the config,
 ``--model-path`` and ``--audio-encoder`` name converted over them, or a
-``--params-store`` of ``cli/convert.py``.  Flags whose machinery is not
+``--params-store`` of ``cli/convert.py``; ``--checkpoint`` overlays a
+trained checkpoint of ``cli/finetune.py``.  Flags whose machinery is not
 ported raise ``NotImplementedError`` naming the ROADMAP.md item that
 brings it.
 """
@@ -37,7 +38,6 @@ logger = logging.getLogger("mraudio_tpu_torch")
 
 # flag → the ROADMAP.md item that ports its machinery
 _UNPORTED = {
-    "checkpoint": "A.5: training (checkpoints)",
     "quant_encoders": "A.2: models/quant_tree.py",
 }
 
@@ -508,7 +508,7 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
 
     from mraudio_tpu_torch.cli.convert import resolve_params
-    from mraudio_tpu_torch.cli.evaluate import build_config
+    from mraudio_tpu_torch.cli.evaluate import build_config, load_trained
     from mraudio_tpu_torch.data.dataset import MRDataset
     from mraudio_tpu_torch.infer.evaluate import refuse_unported
     from mraudio_tpu_torch.models.casting import cast_params_for_inference
@@ -523,8 +523,10 @@ def main(argv=None):
     inline = args.encode_mode == "inline"
     if args.arrival_rate and inline:
         raise SystemExit("--arrival-rate is upfront-encoded load mode; use --encode-mode upfront")
-    model = cast_params_for_inference(
-        resolve_params(build_model(cfg, args.device), cfg, args.params_store))
+    model = resolve_params(build_model(cfg, args.device), cfg, args.params_store)
+    if args.checkpoint:
+        load_trained(model, args.checkpoint)
+    model = cast_params_for_inference(model)
 
     dataset = MRDataset(cfg.data, annotation_path=cfg.data.annotation_file, split="eval")
     limit = args.max_requests or None

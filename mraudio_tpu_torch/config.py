@@ -72,6 +72,8 @@ class ViTConfig(_ConfigBase):
     layer_norm_eps: float = 1e-6
     dtype: str = "bfloat16"
     mlp_act: str = "gelu"          # "gelu" (exact erf), "quick_gelu", "gelu_tanh"
+    # Recompute each block in the backward (training with gradients
+    # through the encoder only: split_encode_step=False).
     grad_checkpoint: bool = False
     # Temporal-residual encoding: every keyframe_interval-th frame runs
     # the full transformer, the others only their residual_tokens
@@ -159,6 +161,8 @@ class LlamaConfig(_ConfigBase):
     kv_keep: int = 0
     kv_keep_obs: int = 32
     kv_keep_sink: int = 4
+    # Training: recompute each decoder block in the backward
+    # (torch.utils.checkpoint), keeping one block input per layer.
     grad_checkpoint: bool = False
     # Decode-shaped projections (<= 32 rows) go through the
     # order-preserving GEMV kernel when "pallas" (the name is kept from
@@ -171,6 +175,9 @@ class LlamaConfig(_ConfigBase):
     # materializes the logits.
     attention_impl: str = "chunked"
     attention_unroll_prefill: bool = False
+    # Accepted and read nowhere: in the JAX package it unrolls XLA's loop
+    # over the training path's attention tiles, which changes no
+    # arithmetic; the port's tile loop is a Python loop already.
     attention_unroll_train: bool = False
     mlp_seq_chunk: int = 0
     # Segmented prefill: segments of this many prefix tokens (0 = one-shot).
@@ -221,7 +228,9 @@ class XInstructBLIPConfig(_ConfigBase):
     # >= 2: lookup self-speculation over that many positions, tokens
     # identical to greedy (infer/generate.py::lookup_generate).
     lookup_spec: int = 0
-    saliency_head: bool = False          # not ported
+    # Per-frame saliency head over the video query tokens (QVH highlight
+    # scores); it trains with the LoRA adapters.
+    saliency_head: bool = False
     # "rgb" ships uint8 (B, T, H, W, 3); "yuv420" the I420 planes packed
     # (B, T, H*3/2, W), RGB rebuilt on the device (ops/image.py).
     video_wire: str = "rgb"
@@ -315,9 +324,10 @@ class MeshConfig(_ConfigBase):
 
 @dataclass(frozen=True)
 class TrainConfig(_ConfigBase):
-    """Training fields, kept so that a YAML RunConfig of the JAX package
-    loads; training itself is not ported.  ``seed`` seeds the random
-    init of ``run_inference``."""
+    """LoRA fine-tuning (``train/trainer.py``); ``seed`` also seeds the
+    random init of ``run_inference``.  ``quant_frozen="int8"``,
+    ``encoder_window`` and ``upload_overlap`` are refused by the trainer
+    (ROADMAP.md A.2 and A.11)."""
 
     lr: float = 3e-4
     weight_decay: float = 0.05

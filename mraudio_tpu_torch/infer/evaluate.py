@@ -1,9 +1,10 @@
 """Batched inference driver: dataset → generate → span parse → JSONL.
 
 Streams predictions for an annotation file into a QVH-submission JSONL
-with records ``{qid, query, vid, pred_relevant_windows, raw_out}``, the
-records the JAX package's ``infer/evaluate.py::run_inference`` writes
-for the same weights:
+with records ``{qid, query, vid, pred_relevant_windows, raw_out}`` (and
+``pred_saliency_scores`` on the 2 s clip grid with the saliency head),
+the records the JAX package's ``infer/evaluate.py::run_inference``
+writes for the same weights:
 
 * ``cfg.data.num_chunks``/``chunk_idx`` shard the annotation list;
 * batches are static-shape with a validity mask (padded rows are skipped
@@ -30,6 +31,7 @@ import logging
 import os
 import time
 
+import numpy as np
 import torch
 
 from mraudio_tpu_torch.config import RunConfig
@@ -42,6 +44,15 @@ logger = logging.getLogger("mraudio_tpu_torch")
 
 _STAT_KEYS = ("prefix_len", "encode_s", "prefill_s", "prefill_segments", "decode_s",
               "decode_steps", "decode_tokens")
+
+
+def saliency_to_clip_grid(frame_times, scores, duration) -> list:
+    """Per-frame saliency resampled onto the QVH 2 s clip grid (one score
+    per clip, the clip centres)."""
+    num_clips = max(int(duration / 2), 1)
+    clip_centers = 2.0 * np.arange(num_clips) + 1.0
+    return np.interp(clip_centers, np.asarray(frame_times, np.float64),
+                     np.asarray(scores)).tolist()
 
 
 def build_model(cfg: RunConfig, device="cuda"):
@@ -57,7 +68,7 @@ def build_model(cfg: RunConfig, device="cuda"):
 def refuse_unported(cfg: RunConfig) -> None:
     """Raise ``NotImplementedError``, naming the ROADMAP.md item, for a
     config that asks for what the port does not do: a tokenizer path,
-    int8 encoders, a mesh, the saliency head."""
+    int8 encoders, a mesh."""
     if cfg.tokenizer_path:
         raise NotImplementedError(
             "RunConfig.tokenizer_path is not read: the JAX package builds its models with "
@@ -70,9 +81,6 @@ def refuse_unported(cfg: RunConfig) -> None:
     if cfg.mesh.num_devices > 1:
         raise NotImplementedError("a mesh of more than one device is not ported yet "
                                   "(ROADMAP.md A.7: parallelism)")
-    if cfg.model.saliency_head:
-        raise NotImplementedError("the saliency head is not ported yet "
-                                  "(ROADMAP.md A.5: training)")
 
 
 def run_inference(
@@ -119,11 +127,12 @@ def run_inference(
 
     dataset = MRDataset(cfg.data, annotations=annotations, split="eval")
     fmt = cfg.model.time_format
+    want_saliency = bool(cfg.model.saliency_head)
 
-    def emit(batch, outputs, records):
-        for qid, query, vid, raw_out, dur, valid in zip(
+    def emit(batch, outputs, saliency, records):
+        for row, (qid, query, vid, raw_out, dur, valid) in enumerate(zip(
             batch.qid, batch.query, batch.vid, outputs, batch.duration, batch.valid,
-        ):
+        )):
             if not valid:
                 continue
             windows = moment_str_to_list(post_process(raw_out))
@@ -136,13 +145,17 @@ def run_inference(
                     else w
                     for w in windows
                 ]
-            records.append({
+            record = {
                 "qid": qid,
                 "query": query,
                 "vid": vid,
                 "pred_relevant_windows": windows,
                 "raw_out": raw_out,
-            })
+            }
+            if saliency is not None:
+                record["pred_saliency_scores"] = saliency_to_clip_grid(
+                    batch.timestamps[row], saliency[row], dur)
+            records.append(record)
 
     def attempt(bs):
         """One full pass at batch size ``bs``."""
@@ -171,7 +184,11 @@ def run_inference(
             if inflight is not None:
                 pbatch, pending = inflight
                 with times.stage("parse_write"):
-                    emit(pbatch, model.generate_finalize(pending), records)
+                    if want_saliency:
+                        outputs, saliency = model.generate_finalize(pending, return_saliency=True)
+                    else:
+                        outputs, saliency = model.generate_finalize(pending), None
+                    emit(pbatch, outputs, saliency, records)
             inflight = submitted
         return records, len(records), time.time() - start, times, batches
 

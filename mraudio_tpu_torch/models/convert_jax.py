@@ -12,8 +12,9 @@ port's modules, which mirror the flax scope names:
   flatten to the port's 2-D / 1-D parameters;
 * the BEATs ``pos_conv`` kernel (k, in/groups, out) becomes torch's
   (out, in/groups, k);
-* ``Embed.embedding``, ``w_int8``/``scale``, ``lora_a``/``lora_b`` copy
-  as they are, in the dtypes given (f32, f16, bf16, int8).
+* ``Embed.embedding``, ``w_int8``/``scale``, ``lora_a``/``lora_b`` and
+  the saliency head's ``fc1``/``fc2`` copy as they are, in the dtypes
+  given (f32, f16, bf16, int8), both ways.
 
 :func:`overlay_jax_params_` copies a tree that covers part of the module
 (a converted checkpoint, ``models/convert_weights.py``), and

@@ -9,12 +9,17 @@ frame runs it on its class token and its ``residual_tokens`` patches
 that changed most against its keyframe (summed squared difference of
 the patch embeddings), and those outputs overwrite the keyframe's
 features at the same positions.
+
+With ``grad_checkpoint`` and a gradient to take (a trainable leaf in
+the encoder, or an input that needs one), each block is recomputed in
+the backward (``torch.utils.checkpoint``).
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mraudio_tpu_torch.config import ViTConfig
 from mraudio_tpu_torch.device import torch_dtype
@@ -82,7 +87,11 @@ class EvaViT(nn.Module):
 
         def run(tokens):
             for blk in self.blocks:
-                tokens = blk(tokens)
+                if cfg.grad_checkpoint and torch.is_grad_enabled() and (
+                        tokens.requires_grad or any(p.requires_grad for p in blk.parameters())):
+                    tokens = checkpoint(blk, tokens, use_reentrant=False, preserve_rng_state=False)
+                else:
+                    tokens = blk(tokens)
             return tokens
 
         if not (cfg.keyframe_interval > 1 and n_frms is not None and n_frms > 1):

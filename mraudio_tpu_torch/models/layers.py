@@ -36,6 +36,48 @@ def pad_rows(x2: torch.Tensor) -> torch.Tensor:
     return x2
 
 
+class _MatmulF32(torch.autograd.Function):
+    """``a @ b`` of two half-precision CUDA operands with f32 accumulation
+    and an f32 result (``torch.mm``/``torch.bmm`` with ``out_dtype``, which
+    autograd cannot differentiate).  The backward takes the same route:
+    the f32 gradient is rounded to the operands' dtype, multiplied with
+    f32 accumulation, and each operand's gradient is returned in its own
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        mm = torch.bmm if a.dim() == 3 else torch.mm
+        return mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        mm = torch.bmm if a.dim() == 3 else torch.mm
+        g = grad.to(a.dtype)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = mm(g, b.transpose(-1, -2), out_dtype=torch.float32).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = mm(a.transpose(-1, -2), g, out_dtype=torch.float32).to(b.dtype)
+        return ga, gb
+
+
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, K) @ (K, N), or batched (N, M, K) @ (N, K, P), with f32
+    accumulation and an f32 result.  On CUDA half-precision operands stay
+    as they are (``out_dtype``; differentiable through :class:`_MatmulF32`
+    when an operand needs a gradient, the same forward arithmetic);
+    elsewhere the same products are taken in f32, which holds the exact
+    product of two bf16 values."""
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            return _MatmulF32.apply(a, b)
+        mm = torch.bmm if a.dim() == 3 else torch.mm
+        return mm(a, b, out_dtype=torch.float32)
+    return torch.matmul(a.float(), b.float())
+
+
 def top_k_indices(x: torch.Tensor, k: int) -> torch.Tensor:
     """Indices of the ``k`` largest entries along the last axis, in
     descending order, lowest index first among equal values (the order of

@@ -23,7 +23,16 @@ The main-path subset of the JAX package's decoder:
   prefill or a segmented prefill's first segment; later segments, per-row
   calls (``q_abs``) and one-token steps over the int8 cache take
   ``chunked_attention`` as in the reference;
-* f32 logits with padded vocab columns at ``finfo(f32).min``.
+* f32 logits with padded vocab columns at ``finfo(f32).min``;
+* the training forward (no cache, grad enabled): LoRA dropout on the
+  adapter input, each projection's mask drawn from a ``torch.Generator``
+  seeded by the step's ``dropout_key`` and the projection's place, so the
+  recompute of a checkpointed block draws the same mask;
+  ``cfg.grad_checkpoint`` recomputes each block in the backward
+  (``torch.utils.checkpoint``), and ``chunked_attention`` recomputes each
+  tile step.  The frozen base and the embedding never take a gradient,
+  and a flash forward whose inputs need one raises: the reference has no
+  backward for its kernel.
 """
 
 from __future__ import annotations
@@ -31,15 +40,17 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mraudio_tpu_torch.config import LlamaConfig, LoraConfig
 from mraudio_tpu_torch.device import torch_dtype
-from mraudio_tpu_torch.models.layers import (DECODE_ROWS, NEG_INF, Embed, RMSNorm, _empty, pad_rows,
-                                             top_k_indices)
-from mraudio_tpu_torch.ops.attention import _bmm_f32, chunked_attention, flash_attention
+from mraudio_tpu_torch.models.layers import (DECODE_ROWS, NEG_INF, Embed, RMSNorm, _MatmulF32,
+                                             _empty, mm_f32, pad_rows, top_k_indices)
+from mraudio_tpu_torch.ops.attention import chunked_attention, flash_attention
 from mraudio_tpu_torch.ops.gemv import decode_gemv, supports
 
 
@@ -76,11 +87,35 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     no such kernel and takes the same math in f32."""
     x2 = x.reshape(-1, x.shape[-1])
     m = x2.shape[0]
-    if x2.is_cuda:
+    if x2.is_cuda and torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad):
+        y = _MatmulF32.apply(pad_rows(x2), w)[:m]
+    elif x2.is_cuda:
         y = torch.mm(pad_rows(x2), w, out_dtype=torch.float32)[:m]
     else:
         y = x2.float() @ w.float()
     return y.reshape(x.shape[:-1] + (w.shape[-1],))
+
+
+# the LoRA projections of a block, in the order their dropout ids count
+LORA_PROJECTIONS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+
+
+def dropout_generator(key: tuple, device) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded by the integer tuple
+    ``key``, through numpy's ``SeedSequence`` (the counterpart of JAX's
+    ``fold_in``: each key gives its own stream)."""
+    seed = int(np.random.SeedSequence([int(k) for k in key]).generate_state(1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(seed & (2 ** 63 - 1))
+
+
+def lora_dropout(x: torch.Tensor, rate: float, key: tuple) -> torch.Tensor:
+    """Inverted dropout (flax ``nn.Dropout``): each element is kept with
+    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``; the mask
+    comes from :func:`dropout_generator` of ``key``."""
+    keep_prob = 1.0 - rate
+    gen = dropout_generator(key, x.device)
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def observation_scores(q_obs, k_full, k_scale, kv_valid, q_start: int, score) -> torch.Tensor:
@@ -104,7 +139,7 @@ def observation_scores(q_obs, k_full, k_scale, kv_valid, q_start: int, score) ->
     for i in range(0, h, hc):
         q_c = q_obs[:, :, i:i + hc].transpose(1, 2).reshape(b * hc, w, d)
         k_c = k_full[:, :, i:i + hc].to(q_obs.dtype).transpose(1, 2).reshape(b * hc, kv_len, d)
-        logits = _bmm_f32(q_c, k_c.transpose(1, 2)).view(b, hc, w, kv_len) * (d ** -0.5)
+        logits = mm_f32(q_c, k_c.transpose(1, 2)).view(b, hc, w, kv_len) * (d ** -0.5)
         if k_scale is not None:
             logits = logits * k_scale[:, i:i + hc, None, :]
         probs = torch.softmax(torch.where(ok, logits, NEG_INF), dim=-1)
@@ -137,10 +172,13 @@ class LlamaLinear(nn.Module):
             self.kernel = _empty(in_features, features)
         self.bias = _empty(features) if use_bias else None
         self.lora_scale = 0.0
+        self.lora_dropout = 0.0
+        self.dropout_id: tuple = ()   # (layer, projection), set by LlamaModel
         if lora is not None and lora.enabled and lora_target:
             self.lora_a = _empty(in_features, lora.rank)
             self.lora_b = _empty(lora.rank, features)
             self.lora_scale = lora.alpha / lora.rank
+            self.lora_dropout = lora.dropout
 
     def gemv_ok(self, x: torch.Tensor) -> bool:
         """Decode-shaped calls (<= 32 rows) take the GEMV kernel when
@@ -149,7 +187,9 @@ class LlamaLinear(nn.Module):
                 and math.prod(x.shape[:-1]) <= DECODE_ROWS
                 and supports(self.in_features, self.features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dropout_key: tuple | None = None) -> torch.Tensor:
+        """``dropout_key``: the training step's key; LoRA dropout then
+        applies to the adapter's input."""
         dt = self.dtype
         w = self.w_int8 if self.quantized else self.kernel.to(dt)
         scale = self.scale if self.quantized else None
@@ -165,7 +205,10 @@ class LlamaLinear(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         if self.lora_scale:
-            y = y + self.lora_delta(x.to(dt)) * self.lora_scale
+            h = x
+            if dropout_key is not None and self.lora_dropout > 0:
+                h = lora_dropout(h, self.lora_dropout, tuple(dropout_key) + self.dropout_id)
+            y = y + self.lora_delta(h.to(dt)) * self.lora_scale
         return y
 
     def lora_delta(self, x: torch.Tensor) -> torch.Tensor:
@@ -206,14 +249,14 @@ class LlamaAttention(nn.Module):
         self.o_proj = lin("o_proj", cfg.hidden_size)
 
     def forward(self, x, mask, positions, cache=None, cache_index=None,
-                kv_valid=None, causal=False, obs_start=None):
+                kv_valid=None, causal=False, obs_start=None, dropout_key=None):
         cfg = self.cfg
         b, s, _ = x.shape
         h, d, kv_h = cfg.num_heads, cfg.head_dim, cfg.num_kv_heads
         dt = torch_dtype(cfg.dtype)
-        q = apply_rope(self.q_proj(x).view(b, s, h, d), positions, cfg.rope_theta)
-        k = apply_rope(self.k_proj(x).view(b, s, kv_h, d), positions, cfg.rope_theta)
-        v = self.v_proj(x).view(b, s, kv_h, d)
+        q = apply_rope(self.q_proj(x, dropout_key).view(b, s, h, d), positions, cfg.rope_theta)
+        k = apply_rope(self.k_proj(x, dropout_key).view(b, s, kv_h, d), positions, cfg.rope_theta)
+        v = self.v_proj(x, dropout_key).view(b, s, kv_h, d)
 
         per_row = cache is not None and not isinstance(cache_index, int)
         quantized = False
@@ -296,6 +339,10 @@ class LlamaAttention(nn.Module):
             out = chunked_attention(q, k_full, v_full, kv_valid, causal=True, kv_bshd=True,
                                     q_bshd=True, **where, **scales)
         elif streaming:
+            if torch.is_grad_enabled() and q.requires_grad:
+                raise NotImplementedError(
+                    "attention_impl='pallas' has no backward: the reference's flash kernel "
+                    "defines none; train with attention_impl='chunked'")
             if quantized:
                 # the flash kernel takes bf16 K/V: dequantize the cache once
                 k_full = k_full.to(dt) * k_scale.transpose(1, 2)[..., None].to(dt)
@@ -312,7 +359,7 @@ class LlamaAttention(nn.Module):
             if quantized:
                 probs = probs * v_scale[:, :, None, :]
             out = torch.einsum("bhqk,bkhd->bqhd", probs.to(dt), v_full.to(dt))
-        out = self.o_proj(out.reshape(b, s, h * d))
+        out = self.o_proj(out.reshape(b, s, h * d), dropout_key)
         return out, cache
 
 
@@ -325,8 +372,9 @@ class LlamaMlp(nn.Module):
         self.up_proj = LlamaLinear(hd, inter, cfg, lora, "up_proj" in targets)
         self.down_proj = LlamaLinear(inter, hd, cfg, lora, "down_proj" in targets)
 
-    def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+    def forward(self, x, dropout_key=None):
+        return self.down_proj(F.silu(self.gate_proj(x, dropout_key)) * self.up_proj(x, dropout_key),
+                              dropout_key)
 
 
 class LlamaBlock(nn.Module):
@@ -338,11 +386,12 @@ class LlamaBlock(nn.Module):
         self.mlp = LlamaMlp(cfg, lora)
 
     def forward(self, x, mask, positions, cache=None, cache_index=None,
-                kv_valid=None, causal=False, obs_start=None):
+                kv_valid=None, causal=False, obs_start=None, dropout_key=None):
         h, cache = self.attn(self.input_norm(x), mask, positions, cache, cache_index,
-                             kv_valid=kv_valid, causal=causal, obs_start=obs_start)
+                             kv_valid=kv_valid, causal=causal, obs_start=obs_start,
+                             dropout_key=dropout_key)
         x = x + h
-        return x + self.mlp(self.post_attn_norm(x)), cache
+        return x + self.mlp(self.post_attn_norm(x), dropout_key), cache
 
 
 class LlamaModel(nn.Module):
@@ -362,6 +411,10 @@ class LlamaModel(nn.Module):
         self.dtype = torch_dtype(cfg.dtype)
         self.embed_tokens = Embed(cfg.padded_vocab_size, cfg.hidden_size)
         self.layers = nn.ModuleList(LlamaBlock(cfg, lora) for _ in range(cfg.num_layers))
+        for i, block in enumerate(self.layers):
+            for j, name in enumerate(LORA_PROJECTIONS):
+                parent = block.attn if hasattr(block.attn, name) else block.mlp
+                getattr(parent, name).dropout_id = (i, j)
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.lm_head = LlamaLinear(cfg.hidden_size, cfg.padded_vocab_size, cfg,
                                    quantize_ok=False)
@@ -379,13 +432,23 @@ class LlamaModel(nn.Module):
 
     def forward(self, inputs_embeds, mask, positions, cache=None, cache_index=None,
                 return_hidden: bool = False, kv_valid=None, causal: bool = False,
-                obs_start: int | None = None):
+                obs_start: int | None = None, dropout_key: tuple | None = None):
         """``obs_start``: under ``cfg.kv_keep``, the absolute column where
-        the prefill's SnapKV observation window starts."""
+        the prefill's SnapKV observation window starts.  ``dropout_key``:
+        the training step's key (LoRA dropout on); with
+        ``cfg.grad_checkpoint`` and a gradient to take, each block is
+        recomputed in the backward from its input."""
         x = inputs_embeds.to(self.dtype)
+        remat = self.cfg.grad_checkpoint and cache is None and torch.is_grad_enabled()
         for i, block in enumerate(self.layers):
+            if remat:
+                x, _ = checkpoint(block, x, mask, positions, None, None, kv_valid=kv_valid,
+                                  causal=causal, obs_start=obs_start, dropout_key=dropout_key,
+                                  use_reentrant=False, preserve_rng_state=False)
+                continue
             x, _ = block(x, mask, positions, cache[i] if cache is not None else None,
-                         cache_index, kv_valid=kv_valid, causal=causal, obs_start=obs_start)
+                         cache_index, kv_valid=kv_valid, causal=causal, obs_start=obs_start,
+                         dropout_key=dropout_key)
         x = self.final_norm(x)
         if return_hidden:
             return x, cache

@@ -1,5 +1,5 @@
-"""X-InstructBLIP assembly for inference: frozen encoders → Q-Formers →
-interleaved LLM sequence → greedy span text.
+"""X-InstructBLIP assembly: frozen encoders → Q-Formers → interleaved
+LLM sequence → span text, and the LoRA training loss.
 
 Per frame the interleave is ``[" video: "][Q video tokens][" audio: "]
 [Q audio tokens][" t "]``, then ``[duration][prompt]``, with static
@@ -10,31 +10,42 @@ through the encoders per pass.
 
 The decoder is greedy, grammar-constrained with forced-token speculation
 (``constrained_decoding``) or lookup self-speculation (``lookup_spec``);
-video arrives as RGB or on the yuv420 wire (``video_wire``).  Not ported
-yet (raise ``NotImplementedError``): the saliency head, training.
+video arrives as RGB or on the yuv420 wire (``video_wire``).  With
+``saliency_head`` a per-frame score comes out of the same encoder pass.
+
+Training (:meth:`XInstructBLIP._loss_fn`): the train-time crop and flip,
+the interleaved prefix followed by the spliced prompt and target, the
+decoder's training forward, and the shifted cross entropy with HF's -100
+ignore, computed 512 positions at a time (the f32 logits of the whole
+sequence would take GBs), plus the saliency head's BCE.
 """
 
 from __future__ import annotations
 
+import ast
 import dataclasses
 import time
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from mraudio_tpu_torch.config import AudioFrontendConfig, XInstructBLIPConfig
 from mraudio_tpu_torch.device import resolve_device, torch_dtype
 from mraudio_tpu_torch.infer.generate import grammar_generate, greedy_generate, lookup_generate
 from mraudio_tpu_torch.models.beats import BeatsEncoder
 from mraudio_tpu_torch.models.eva_vit import EvaViT
-from mraudio_tpu_torch.models.layers import Dense, LayerNormFp32, _empty
+from mraudio_tpu_torch.models.layers import (Dense, LayerNormFp32, _empty, gelu_exact,
+                                             positions_from_mask)
 from mraudio_tpu_torch.models.llama import LlamaModel
 from mraudio_tpu_torch.models.qformer import QFormer
 from mraudio_tpu_torch.ops.fbank import beats_frontend
-from mraudio_tpu_torch.ops.image import normalize_frames, rgb_to_yuv420, yuv420_to_rgb
+from mraudio_tpu_torch.ops.image import (augment_and_normalize, normalize_frames, rgb_to_yuv420,
+                                         yuv420_to_rgb)
 from mraudio_tpu_torch.text.prompts import MODALITY_CUES
 from mraudio_tpu_torch.text.tokenizer import ByteTokenizer
 
@@ -62,6 +73,22 @@ class _Proj(nn.Module):
         return self.proj(x)
 
 
+class _SaliencyHead(nn.Module):
+    """Per-frame saliency scores from the video query tokens, in f32:
+    (B, T, Q, D) → mean over the queries → Dense(256) → GELU → Dense(1)
+    → (B, T)."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.fc1 = Dense(features, 256, True, torch.float32)
+        self.fc2 = Dense(256, 1, True, torch.float32)
+
+    def forward(self, video_tokens):
+        # the mean is taken in f32 and rounded to the tokens' dtype, as jnp.mean
+        pooled = video_tokens.float().mean(dim=2).to(video_tokens.dtype).float()
+        return self.fc2(gelu_exact(self.fc1(pooled)))[..., 0]
+
+
 def _render_timestamps(row, duration, time_format: str) -> list:
     if time_format == "seconds_integers":
         return [int(ts) for ts in row]
@@ -78,7 +105,7 @@ def _render_timestamps(row, duration, time_format: str) -> list:
 
 @dataclasses.dataclass
 class TextBatch:
-    """Host-tokenized text chunks with static shapes (generation)."""
+    """Host-tokenized text chunks with static shapes."""
 
     qformer_ids: np.ndarray       # (B, Lq)
     qformer_mask: np.ndarray
@@ -86,8 +113,11 @@ class TextBatch:
     ts_mask: np.ndarray
     dur_ids: np.ndarray           # (B, Kd)
     dur_mask: np.ndarray
-    prompt_ids: np.ndarray        # (B, Lp), left-padded
+    prompt_ids: np.ndarray        # (B, Lp), left-padded at generate
     prompt_mask: np.ndarray
+    concat_ids: Optional[np.ndarray] = None    # (B, Lc) train: prompt + target spliced
+    concat_mask: Optional[np.ndarray] = None
+    labels: Optional[np.ndarray] = None        # (B, Lc), -100 where no loss
 
 
 @dataclasses.dataclass
@@ -104,7 +134,17 @@ class GenerateBatch:
 
 class XInstructBLIP(nn.Module):
     """The module set plus host tokenization; ``generate`` runs the whole
-    inference path on ``device``."""
+    inference path on ``device``, ``_loss_fn`` the training forward."""
+
+    # What trains (regex on the flat flax name): the LoRA adapters, and the
+    # saliency head when there is one.
+    TRAINABLE_PATTERN = r"(lora_a|lora_b|saliency_head)"
+    # Parameter scopes that only the encoder pass reads: with nothing
+    # trainable under them the trainer encodes without gradients.
+    ENCODER_PARAM_KEYS = (
+        "vit", "beats", "video_ln", "audio_ln", "video_qformer", "audio_qformer",
+        "video_query_tokens", "audio_query_tokens", "video_proj", "audio_proj",
+    )
 
     def __init__(self, cfg: XInstructBLIPConfig, audio_cfg: AudioFrontendConfig | None = None,
                  llm_tokenizer=None, qformer_tokenizer=None, device="cuda"):
@@ -112,8 +152,6 @@ class XInstructBLIP(nn.Module):
         unknown = [m for m in cfg.modalities if m not in ("audio", "video")]
         if unknown:
             raise ValueError(f"modalities {unknown} have no code path; use audio/video")
-        if cfg.saliency_head:
-            raise NotImplementedError("XInstructBLIPConfig.saliency_head is not ported yet")
         self.cfg = cfg
         self.audio_cfg = audio_cfg or AudioFrontendConfig()
         self.llm_tokenizer = llm_tokenizer or ByteTokenizer(cfg.llm.vocab_size)
@@ -132,6 +170,8 @@ class XInstructBLIP(nn.Module):
             self.video_proj = _Proj(h, cfg.llm.hidden_size)
             self.audio_proj = _Proj(h, cfg.llm.hidden_size)
             self.llm = LlamaModel(cfg.llm, cfg.lora if cfg.lora.enabled else None)
+            if cfg.saliency_head:
+                self.saliency_head = _SaliencyHead(cfg.llm.hidden_size)
         # Per-frame modality cues start with BOS, as the reference's
         # tokenizer call does by default.
         self.cue_ids = {
@@ -148,7 +188,12 @@ class XInstructBLIP(nn.Module):
     # Host tokenization
     # ------------------------------------------------------------------
 
-    def prepare_text(self, text_input: list, timestamps: np.ndarray, duration: list) -> TextBatch:
+    def prepare_text(self, text_input: list, timestamps: np.ndarray, duration: list,
+                     text_output: list | None = None) -> TextBatch:
+        """The batch's text, tokenized to static shapes.  With
+        ``text_output`` (training) the prompt and the target are spliced
+        into ``concat_ids`` with ``labels``; otherwise the prompt is left-
+        padded for generation."""
         cfg = self.cfg
         b, t = timestamps.shape
         q_enc = self.qformer_tokenizer(
@@ -178,17 +223,44 @@ class XInstructBLIP(nn.Module):
             raise ValueError(
                 f"{dur_enc.num_truncated} duration renderings exceed "
                 f"tokens_per_duration={cfg.tokens_per_duration}")
-        prompt_enc = self.llm_tokenizer(
-            [p.strip() for p in text_input], max_length=cfg.max_txt_len,
-            padding_side="left", truncation_side="left",
-        )
-        return TextBatch(
+        common = dict(
             qformer_ids=q_enc.input_ids, qformer_mask=q_enc.attention_mask,
             ts_ids=ts_enc.input_ids.reshape(b, t, cfg.tokens_per_timestamp),
             ts_mask=ts_enc.attention_mask.reshape(b, t, cfg.tokens_per_timestamp),
             dur_ids=dur_enc.input_ids, dur_mask=dur_enc.attention_mask,
-            prompt_ids=prompt_enc.input_ids, prompt_mask=prompt_enc.attention_mask,
         )
+        if text_output is None:
+            prompt_enc = self.llm_tokenizer(
+                [p.strip() for p in text_input], max_length=cfg.max_txt_len,
+                padding_side="left", truncation_side="left",
+            )
+            return TextBatch(prompt_ids=prompt_enc.input_ids,
+                             prompt_mask=prompt_enc.attention_mask, **common)
+
+        # Train: [prompt with BOS, target without BOS plus EOS, padding];
+        # the labels mask the padding and the prompt.  The target keeps
+        # max_output_txt_len - 1 tokens: the reference truncates before it
+        # strips the BOS.
+        tok = self.llm_tokenizer
+        total = cfg.max_txt_len + cfg.max_output_txt_len
+        concat_ids = np.full((b, total), tok.pad_token_id, np.int32)
+        concat_mask = np.zeros((b, total), np.int32)
+        labels = np.full((b, total), -100, np.int32)
+        prompt_ids = np.full((b, cfg.max_txt_len), tok.pad_token_id, np.int32)
+        prompt_mask = np.zeros((b, cfg.max_txt_len), np.int32)
+        for i, (inp, out) in enumerate(zip(text_input, text_output)):
+            in_ids = tok.encode(inp, add_special_tokens=True)[-cfg.max_txt_len:]
+            out_ids = tok.encode(out, add_special_tokens=False) + [tok.eos_token_id]
+            out_ids = out_ids[: cfg.max_output_txt_len - 1]
+            seq = (in_ids + out_ids)[:total]
+            concat_ids[i, : len(seq)] = seq
+            concat_mask[i, : len(seq)] = 1
+            labels[i, : len(seq)] = seq
+            labels[i, : min(len(in_ids), total)] = -100
+            prompt_ids[i, : len(in_ids)] = in_ids
+            prompt_mask[i, : len(in_ids)] = 1
+        return TextBatch(prompt_ids=prompt_ids, prompt_mask=prompt_mask, concat_ids=concat_ids,
+                         concat_mask=concat_mask, labels=labels, **common)
 
     # ------------------------------------------------------------------
     # Device computation
@@ -204,15 +276,22 @@ class XInstructBLIP(nn.Module):
         return b * t
 
     def _encode_modality_tokens(self, video_u8, audio_wave, qformer_ids, qformer_mask,
-                                n_frms: int) -> dict:
-        """uint8 video + waveform → {modality: (B, T, Q, D_llm)}."""
+                                n_frms: int, crop_params=None) -> dict:
+        """uint8 video + waveform → {modality: (B, T, Q, D_llm)}.
+        ``crop_params`` (B, 5) applies the train-time crop and flip
+        (``ops/image.py::augment_and_normalize``); None is the eval
+        preprocessing."""
         cfg = self.cfg
         out = {}
         if "video" in cfg.modalities:
             b, t = video_u8.shape[:2]
             if cfg.video_wire == "yuv420":
                 video_u8 = yuv420_to_rgb(video_u8)     # the I420 wire → f32 RGB
-            frames = normalize_frames(video_u8, dtype=torch_dtype(cfg.vit.dtype))
+            if crop_params is not None:
+                frames = augment_and_normalize(video_u8, crop_params, cfg.vit.image_size,
+                                               dtype=torch_dtype(cfg.vit.dtype))
+            else:
+                frames = normalize_frames(video_u8, dtype=torch_dtype(cfg.vit.dtype))
             folded = frames.reshape((b * t,) + frames.shape[2:])
             # the temporal-residual ViT needs whole clips in each pass
             per = self._frames_per_pass(b, t, cfg.vit.keyframe_interval == 1)
@@ -302,6 +381,10 @@ class XInstructBLIP(nn.Module):
         """Encoders + interleave + prompt → (embeds (B, S, D), mask (B, S)).
         The text arrays may be host arrays or tensors already on the
         device."""
+        return self._prefix_embeds(video_u8, audio_wave, text, n_frms)[:2]
+
+    def _prefix_embeds(self, video_u8, audio_wave, text: TextBatch, n_frms: int):
+        """:meth:`prefix_embeds` and the modal tokens it was built from."""
         dev = self.device
 
         def dv(a):
@@ -316,7 +399,7 @@ class XInstructBLIP(nn.Module):
         prompt_emb = self.llm.embed(dv(text.prompt_ids))
         embeds = torch.cat([prefix, prompt_emb], dim=1)
         mask = torch.cat([pmask, dv(text.prompt_mask).to(torch.int32)], dim=1)
-        return embeds, mask
+        return embeds, mask, modal
 
     # ------------------------------------------------------------------
     # Public entry points
@@ -390,8 +473,9 @@ class XInstructBLIP(nn.Module):
     def generate_submit(self, params=None, batch=None, device_inputs=None,
                         stats: dict | None = None):
         """Run preprocessing, encoders, interleave, prefill and the decode
-        loop; returns ``(tokens (B, max_new_tokens), None)`` on the
-        device.  ``stats``, if given, receives ``encode_s`` and
+        loop; returns ``(tokens (B, max_new_tokens), saliency)`` on the
+        device, ``saliency`` (B, T) from the same encoder pass with
+        ``cfg.saliency_head``, else None.  ``stats``, if given, receives ``encode_s`` and
         ``prefix_len`` plus what the decoder records; the
         encoding runs inside a profiler span named ``encode``.  ``params`` is accepted for signature parity with the
         JAX package and must be None: the weights live in the module."""
@@ -403,23 +487,27 @@ class XInstructBLIP(nn.Module):
             text = self.prepare_text(batch.text_input, np.asarray(batch.timestamps),
                                      batch.duration)
             video_dev, audio_dev = device_inputs or self.device_inputs(batch)
-            embeds, mask = self.prefix_embeds(video_dev, audio_dev, text, n_frms)
+            embeds, mask, modal = self._prefix_embeds(video_dev, audio_dev, text, n_frms)
+            saliency = self.saliency_head(modal["video"]) if self.cfg.saliency_head else None
+            del modal
             if stats is not None:
                 if embeds.is_cuda:
                     torch.cuda.synchronize(embeds.device)
                 stats["encode_s"] = time.perf_counter() - t0
                 stats["prefix_len"] = embeds.shape[1]
-        return self._decode(embeds, mask, text, stats), None
+        return self._decode(embeds, mask, text, stats), saliency
 
     def generate_finalize(self, pending, return_saliency: bool = False):
-        """Decode a :meth:`generate_submit` result to strings."""
-        if return_saliency:
-            raise NotImplementedError("the saliency head is not ported yet")
-        tokens, _ = pending
+        """Decode a :meth:`generate_submit` result to strings; with
+        ``return_saliency``, ``(texts, (B, T) saliency or None)``."""
+        tokens, saliency = pending
         tokens = tokens.cpu().numpy().copy()
         tokens[tokens == 0] = self.llm_tokenizer.eos_token_id  # id 0 → EOS before decode
         texts = self.llm_tokenizer.batch_decode(tokens, skip_special_tokens=True)
-        return [t.strip() for t in texts]
+        texts = [t.strip() for t in texts]
+        if return_saliency:
+            return texts, (saliency.float().cpu().numpy() if saliency is not None else None)
+        return texts
 
     def generate(self, params=None, batch=None, device_inputs=None,
                  return_saliency: bool = False, stats: dict | None = None):
@@ -428,3 +516,127 @@ class XInstructBLIP(nn.Module):
             self.generate_submit(params, batch, device_inputs, stats=stats),
             return_saliency=return_saliency,
         )
+
+    # ------------------------------------------------------------------
+    # Training
+    # ------------------------------------------------------------------
+
+    def _loss_fn(self, video_u8, audio_wave, qformer_ids, qformer_mask, ts_ids, ts_mask,
+                 dur_ids, dur_mask, concat_ids, concat_mask, labels, saliency_labels=None,
+                 crop_params=None, dropout_key=None, *, n_frms: int):
+        """The training forward → scalar loss: the encoders (with the crop
+        and flip of ``crop_params``), then :meth:`_loss_from_tokens`.
+        ``dropout_key`` turns LoRA dropout on."""
+        modal = self._encode_modality_tokens(video_u8, audio_wave, qformer_ids, qformer_mask,
+                                             n_frms, crop_params=crop_params)
+        return self._loss_from_tokens(modal, ts_ids, ts_mask, dur_ids, dur_mask, concat_ids,
+                                      concat_mask, labels, saliency_labels,
+                                      dropout_key=dropout_key)
+
+    def _loss_from_tokens(self, modal, ts_ids, ts_mask, dur_ids, dur_mask, concat_ids,
+                          concat_mask, labels, saliency_labels=None, dropout_key=None):
+        """CE (+ saliency BCE) from precomputed modal tokens; reads only the
+        ``llm`` (and ``saliency_head``) parameters."""
+        prefix, pmask = self._build_prefix(modal, ts_ids, ts_mask, dur_ids, dur_mask)
+        embeds = torch.cat([prefix, self.llm.embed(concat_ids)], dim=1)
+        mask = torch.cat([pmask, concat_mask.to(torch.int32)], dim=1)
+        # prefix positions never carry a loss
+        full_labels = torch.cat([torch.full(pmask.shape, -100, dtype=torch.int64,
+                                            device=mask.device), labels.long()], dim=1)
+        s = embeds.shape[1]
+        causal = torch.ones((s, s), dtype=torch.bool, device=mask.device).tril()[None, None]
+        attend = causal & (mask[:, None, None, :] > 0)
+        hidden, _ = self.llm(embeds, attend, positions_from_mask(mask), kv_valid=mask,
+                             causal=True, return_hidden=True, dropout_key=dropout_key)
+        loss = self._chunked_ce(hidden[:, :-1], full_labels[:, 1:])
+
+        # sigmoid BCE of the per-frame scores against in-window labels;
+        # -1 labels are ignored
+        if self.cfg.saliency_head and saliency_labels is not None:
+            scores = self.saliency_head(modal["video"]).float()
+            sl = saliency_labels.float()
+            valid = sl >= 0
+            target = torch.where(valid, sl, 0.0)
+            bce = (torch.clamp(scores, min=0) - scores * target
+                   + torch.log1p(torch.exp(-scores.abs())))
+            loss = loss + (bce * valid).sum() / valid.sum().clamp(min=1)
+        return loss
+
+    def _chunked_ce(self, hidden, labels, chunk: int = 512):
+        """Mean token CE over the targets that are not -100 (HF semantics),
+        ``chunk`` positions at a time: the lm_head and log-softmax of a
+        chunk are recomputed in the backward (``torch.utils.checkpoint``)
+        when a gradient is taken, so no (B, S, V) f32 tensor is kept."""
+        b, s, _ = hidden.shape
+        pad = (-s) % chunk
+        if pad:
+            hidden = F.pad(hidden, (0, 0, 0, pad))
+            labels = F.pad(labels, (0, pad), value=-100)
+
+        def step(h_blk, l_blk):
+            logits = self.llm.logits(h_blk)
+            valid = l_blk != -100
+            safe = torch.where(valid, l_blk, 0)
+            tok = torch.log_softmax(logits, dim=-1).gather(-1, safe[..., None])[..., 0]
+            return (tok * valid).sum(), valid.sum()
+
+        remat = torch.is_grad_enabled() and hidden.requires_grad
+        ll_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        count = torch.zeros((), dtype=torch.int64, device=hidden.device)
+        for c in range(0, s + pad, chunk):
+            args = (hidden[:, c:c + chunk], labels[:, c:c + chunk])
+            if remat:
+                ll, n = checkpoint(step, *args, use_reentrant=False, preserve_rng_state=False)
+            else:
+                ll, n = step(*args)
+            ll_sum, count = ll_sum + ll, count + n
+        return -ll_sum / count.clamp(min=1)
+
+    def loss_arrays(self, batch) -> tuple:
+        """Host-side text prep → the host arrays :meth:`_loss_fn` takes, in
+        its order (with ``saliency_head``, the saliency labels last)."""
+        text = self.prepare_text(batch.text_input, np.asarray(batch.timestamps), batch.duration,
+                                 text_output=batch.text_output)
+        arrays = (
+            self._wire_video(batch.video), np.asarray(batch.audio),
+            text.qformer_ids, text.qformer_mask, text.ts_ids, text.ts_mask,
+            text.dur_ids, text.dur_mask, text.concat_ids, text.concat_mask, text.labels,
+        )
+        if self.cfg.saliency_head:
+            arrays = arrays + (self._saliency_labels(batch),)
+        return arrays
+
+    def device_arrays(self, arrays: tuple) -> tuple:
+        """:meth:`loss_arrays`' host arrays as tensors on the model's device."""
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in arrays)
+
+    @staticmethod
+    def _saliency_labels(batch) -> np.ndarray:
+        """(B, T) {0, 1} per-frame in-window labels from the training
+        targets (``text_output`` is ``str(relevant_windows)``); -1 where
+        the windows do not parse."""
+        stamps = np.asarray(batch.timestamps)
+        labels = np.full(stamps.shape, -1.0, np.float32)
+        for i, out in enumerate(batch.text_output):
+            try:
+                windows = ast.literal_eval(out)
+            except (ValueError, SyntaxError):
+                continue
+            if not isinstance(windows, (list, tuple)):
+                continue
+            row = np.zeros(stamps.shape[1], np.float32)
+            for w in windows:
+                if isinstance(w, (list, tuple)) and len(w) == 2:
+                    row += (stamps[i] >= w[0]) & (stamps[i] <= w[1])
+            labels[i] = np.minimum(row, 1.0)
+        return labels
+
+    def loss(self, params=None, batch=None, crop_params=None, dropout_key=None) -> torch.Tensor:
+        """Training forward → scalar loss.  ``crop_params`` (B, 5) applies
+        the train-time crop and flip (``ops/image.py::sample_crop_params``)."""
+        if params is not None:
+            raise ValueError("the port's weights live in the module; pass params=None")
+        arrays = self.device_arrays(self.loss_arrays(batch))
+        crop = None if crop_params is None else torch.as_tensor(crop_params).to(self.device)
+        return self._loss_fn(*arrays, crop_params=crop, dropout_key=dropout_key,
+                             n_frms=batch.timestamps.shape[1])

@@ -24,7 +24,7 @@ import math
 
 import torch
 
-from mraudio_tpu_torch.models.layers import NEG_INF
+from mraudio_tpu_torch.models.layers import NEG_INF, mm_f32
 from mraudio_tpu_torch.ops import build
 
 
@@ -108,20 +108,15 @@ def flash_attention(q, k, v, mask, causal: bool = True) -> torch.Tensor:
 flash_attention.launches = 0
 
 
-def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(N, M, K) @ (N, K, P) with f32 accumulation and an f32 result.
-    On CUDA, half-precision operands stay as they are (``torch.bmm`` with
-    ``out_dtype``); elsewhere the same products are taken in f32, which
-    holds the exact product of two bf16 values."""
-    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
-        return torch.bmm(a, b, out_dtype=torch.float32)
-    return torch.bmm(a.float(), b.float())
+def _grad_needed(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def chunked_attention(q, k, v, mask, causal: bool = True, block_k: int = 512,
                       block_q: int = 512, k_scale=None, v_scale=None, kv_bshd: bool = False,
                       q_bshd: bool = False, q_offset: int = 0, q_abs=None,
-                      scales_bhs: bool = False) -> torch.Tensor:
+                      scales_bhs: bool = False, _stats: list | None = None) -> torch.Tensor:
     """Online-softmax attention over ``block_q`` query tiles and
     ``block_k`` key chunks, with the reference's contract:
 
@@ -154,7 +149,20 @@ def chunked_attention(q, k, v, mask, causal: bool = True, block_k: int = 512,
 
     Both products take operands in q's dtype with f32 accumulation.  No
     (B, H, S, KV) tensor is made, and a whole-cache conversion only for a
-    tile of at most 16 queries."""
+    tile of at most 16 queries.
+
+    Under autograd (grad enabled and q, k or v needing a gradient: the
+    training forward, unquantized K/V with queries from column 0) the
+    forward is this function as it stands, and the backward
+    (:class:`_ChunkedAttentionFn`) recomputes each tile's probabilities
+    from the forward's row max and sum, chunk by chunk, so it too keeps
+    no (B, H, S, KV) tensor."""
+    if _grad_needed(q, k, v):
+        if k_scale is not None or v_scale is not None or q_abs is not None or q_offset:
+            raise NotImplementedError("chunked_attention has a backward only for unquantized "
+                                      "K/V whose queries start at column 0 (training)")
+        return _ChunkedAttentionFn.apply(q, k, v, mask, causal, block_k, block_q, kv_bshd,
+                                         q_bshd)
     if q_bshd:
         b, s, h, d = q.shape
     else:
@@ -177,7 +185,7 @@ def chunked_attention(q, k, v, mask, causal: bool = True, block_k: int = 512,
         bq = q_blk.shape[2]
         k_blk = heads_major(k.narrow(kv_axis, kv_start, blk)).to(dtype).contiguous()
         v_blk = heads_major(v.narrow(kv_axis, kv_start, blk)).to(dtype).contiguous()
-        logits = _bmm_f32(q_blk.reshape(b * h, bq, d),
+        logits = mm_f32(q_blk.reshape(b * h, bq, d),
                           k_blk.reshape(b * h, blk, d).transpose(1, 2)).view(b, h, bq, blk)
         logits = logits * scale
         if k_scale is not None:
@@ -195,7 +203,7 @@ def chunked_attention(q, k, v, mask, causal: bool = True, block_k: int = 512,
         l_new = alpha * l_i + p.sum(dim=-1, keepdim=True)
         if v_scale is not None:
             p = p * scales_bhk(v_scale.narrow(sc_axis, kv_start, blk))[:, :, None, :]
-        pv = _bmm_f32(p.to(dtype).reshape(b * h, bq, blk), v_blk.reshape(b * h, blk, d))
+        pv = mm_f32(p.to(dtype).reshape(b * h, bq, blk), v_blk.reshape(b * h, blk, d))
         return acc * alpha + pv.view(b, h, bq, d), m_new, l_new
 
     def one_pass(bi, q_row, q_pos):
@@ -210,7 +218,7 @@ def chunked_attention(q, k, v, mask, causal: bool = True, block_k: int = 512,
 
         k_all = heads_major(row(k)).to(dtype, memory_format=torch.contiguous_format)
         v_all = heads_major(row(v)).to(dtype, memory_format=torch.contiguous_format)
-        logits = _bmm_f32(q_row.reshape(h, rows, d), k_all.reshape(h, kv_len, d).transpose(1, 2))
+        logits = mm_f32(q_row.reshape(h, rows, d), k_all.reshape(h, kv_len, d).transpose(1, 2))
         logits = logits.view(1, h, rows, kv_len) * scale
         if k_scale is not None:
             logits = logits * scales_bhk(row(k_scale))[:, :, None, :]
@@ -218,15 +226,16 @@ def chunked_attention(q, k, v, mask, causal: bool = True, block_k: int = 512,
         if causal:
             valid = valid & (torch.arange(kv_len, device=dev) <= q_pos)
         logits = torch.where(valid, logits, NEG_INF)
-        p = torch.where(valid, torch.exp(logits - logits.amax(dim=-1, keepdim=True)), 0.0)
         # a row sum over a length that is not a multiple of the vector
         # width groups its terms by where the row starts in memory, i.e. by
         # the query's place in the tile: sum over a padded length
+        m_i = logits.amax(dim=-1, keepdim=True)
+        p = torch.where(valid, torch.exp(logits - m_i), 0.0)
         l_i = torch.nn.functional.pad(p, (0, -kv_len % 16)).sum(dim=-1, keepdim=True)
         if v_scale is not None:
             p = p * scales_bhk(row(v_scale))[:, :, None, :]
-        acc = _bmm_f32(p.to(dtype).reshape(h, rows, kv_len), v_all.reshape(h, kv_len, d))
-        return acc.view(1, h, rows, d), l_i
+        acc = mm_f32(p.to(dtype).reshape(h, rows, kv_len), v_all.reshape(h, kv_len, d))
+        return acc.view(1, h, rows, d), m_i, l_i
 
     num_full = kv_len // block_k
     tail_len = kv_len - num_full * block_k
@@ -255,7 +264,7 @@ def chunked_attention(q, k, v, mask, causal: bool = True, block_k: int = 512,
             parts = [one_pass(bi, q_blk[bi:bi + 1].contiguous(),
                               q_pos[bi:bi + 1] if q_pos.shape[0] > 1 else q_pos)
                      for bi in range(b)]
-            acc, l_i = (torch.cat(t) for t in zip(*parts))
+            acc, m_i, l_i = (torch.cat(t) for t in zip(*parts))
         else:
             q_blk, q_pos = q_blk.contiguous(), q_pos[:, None, :, None]    # (B|1, 1, bq, 1)
             carry = (torch.zeros((b, h, bq, d), dtype=torch.float32, device=dev),
@@ -266,8 +275,102 @@ def chunked_attention(q, k, v, mask, causal: bool = True, block_k: int = 512,
             if need_tail or nf == 0:
                 carry = attend(carry, q_blk, q_pos, tail_start, tail_blk,
                                min_kv=num_full * block_k if tail_start else 0)
-            acc, _, l_i = carry
-        acc, l_i = acc[:, :, :bq], l_i[:, :, :bq]
+            acc, m_i, l_i = carry
+        acc, m_i, l_i = acc[:, :, :bq], m_i[:, :, :bq], l_i[:, :, :bq]
+        if _stats is not None:
+            _stats.append((m_i, l_i))
         out = (acc / torch.where(l_i == 0, 1.0, l_i)).to(dtype)
         tiles.append(out.transpose(1, 2) if q_bshd else out)
     return torch.cat(tiles, dim=1 if q_bshd else 2)
+
+
+def _chunks(kv_len: int, block_k: int, q_end: int, causal: bool):
+    """The key chunks ``chunked_attention`` visits for a query tile whose
+    last query sits at column ``q_end`` (queries from column 0):
+    ``(start, length, min_kv)``, the full chunks up to the diagonal and the
+    ragged tail, which re-reads the last ``block_k`` rows with the rows
+    the full chunks covered masked out."""
+    num_full = kv_len // block_k
+    tail_len = kv_len - num_full * block_k
+    tail_blk = min(block_k, kv_len)
+    tail_start = kv_len - tail_blk
+    if causal:
+        nf = min((q_end + block_k) // block_k, num_full)
+        need_tail = tail_len > 0 and q_end >= num_full * block_k
+    else:
+        nf, need_tail = num_full, tail_len > 0
+    out = [(c * block_k, block_k, 0) for c in range(nf)]
+    if need_tail or nf == 0:
+        out.append((tail_start, tail_blk, num_full * block_k if tail_start else 0))
+    return out
+
+
+class _ChunkedAttentionFn(torch.autograd.Function):
+    """``chunked_attention`` under autograd.  The forward is the plain
+    function (the same bits as without a gradient), keeping each query
+    row's final max ``m`` and sum ``l``.  The backward walks the same
+    tiles and chunks: P = exp(logits - m) / l (0 where masked),
+    dV += Pᵀ·dO, dS = P ∘ (dO·Vᵀ - rowsum(dO ∘ O)), dQ += dS·K·scale,
+    dK += dSᵀ·Q·scale; the products take operands in q's dtype with f32
+    accumulation, the gradients accumulate in f32."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, causal, block_k, block_q, kv_bshd, q_bshd):
+        stats = []
+        out = chunked_attention(q, k, v, mask, causal=causal, block_k=block_k, block_q=block_q,
+                                kv_bshd=kv_bshd, q_bshd=q_bshd, _stats=stats)
+        m = torch.cat([t[0] for t in stats], dim=2)                   # (B, H, S, 1)
+        l = torch.cat([t[1] for t in stats], dim=2)
+        ctx.save_for_backward(q, k, v, mask, out, m, l)
+        ctx.conf = (causal, block_k, block_q, kv_bshd, q_bshd)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, mask, out, m, l = ctx.saved_tensors
+        causal, block_k, block_q, kv_bshd, q_bshd = ctx.conf
+        heads = (lambda t: t.transpose(1, 2))
+
+        qh = heads(q) if q_bshd else q                                # (B, H, S, D)
+        kh, vh = (heads(k), heads(v)) if kv_bshd else (k, v)          # (B, H, KV, D)
+        oh, doh = (heads(out), heads(dout)) if q_bshd else (out, dout)
+        b, h, s, d = qh.shape
+        kv_len = kh.shape[2]
+        dtype = q.dtype
+        scale = 1.0 / math.sqrt(d)
+        dev = q.device
+        inv_l = torch.where(l == 0, 0.0, 1.0 / torch.where(l == 0, 1.0, l))
+        dsum = (doh.float() * oh.float()).sum(dim=-1, keepdim=True)   # (B, H, S, 1)
+        dq = torch.zeros((b, h, s, d), dtype=torch.float32, device=dev)
+        dk = torch.zeros((b, h, kv_len, d), dtype=torch.float32, device=dev)
+        dv = torch.zeros((b, h, kv_len, d), dtype=torch.float32, device=dev)
+
+        def mm(x, y):                                                 # (B, H, m, k) @ (B, H, k, n)
+            return mm_f32(x.reshape(b * h, *x.shape[2:]),
+                            y.reshape(b * h, *y.shape[2:])).view(b, h, x.shape[2], y.shape[3])
+
+        for qs in range(0, s, block_q):
+            bq = min(block_q, s - qs)
+            rows = slice(qs, qs + bq)
+            q_blk, do_blk = qh[:, :, rows].contiguous(), doh[:, :, rows].to(dtype).contiguous()
+            q_pos = torch.arange(qs, qs + bq, device=dev)[:, None]
+            for start, blk, min_kv in _chunks(kv_len, block_k, qs + bq - 1, causal):
+                cols = slice(start, start + blk)
+                k_blk, v_blk = kh[:, :, cols].contiguous(), vh[:, :, cols].contiguous()
+                kv_pos = torch.arange(start, start + blk, device=dev)
+                valid = mask[:, cols].bool()[:, None, None, :]
+                if min_kv:
+                    valid = valid & (kv_pos >= min_kv)
+                if causal:
+                    valid = valid & (kv_pos <= q_pos)
+                logits = mm(q_blk, k_blk.transpose(-1, -2)) * scale
+                p = torch.where(valid, torch.exp(logits - m[:, :, rows]), 0.0) * inv_l[:, :, rows]
+                dv[:, :, cols] += mm(p.to(dtype).transpose(-1, -2), do_blk)
+                ds = p * (mm(do_blk, v_blk.transpose(-1, -2)) - dsum[:, :, rows])
+                ds = ds.to(dtype)
+                dq[:, :, rows] += mm(ds, k_blk) * scale
+                dk[:, :, cols] += mm(ds.transpose(-1, -2), q_blk) * scale
+        dq = heads(dq) if q_bshd else dq
+        dk, dv = (heads(dk), heads(dv)) if kv_bshd else (dk, dv)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None, None,
+                None)

@@ -79,7 +79,7 @@ def pair():
     the port's model is already cast for inference by its first run."""
     jcfg = JRunConfig(model=_f32_int8(j_tiny()), data=j_tiny_data(n_frms=4))
     jm = JModel(jcfg.model, audio_cfg=jcfg.data.audio)
-    params = _refill_int8(jax.device_get(jm.init_params(jax.random.PRNGKey(0))),
+    params = _refill_int8(jax.device_get(jm.init_params(jax.random.PRNGKey(0), jit=True)),
                           np.random.default_rng(1))
     tcfg = RunConfig(model=_f32_int8(tiny_model_config()), data=tiny_data_config(n_frms=4))
     tm = XInstructBLIP(tcfg.model, audio_cfg=tcfg.data.audio, device="cpu")
@@ -304,12 +304,23 @@ def _run_cli_capturing_model(monkeypatch, argv):
 def test_cli_unported_flags_raise(flag, tmp_path, fabricated, monkeypatch):
     """The flags whose machinery is not ported raise, naming their
     ROADMAP.md item; ``--model-path``, ``--audio-encoder`` and
-    ``--params-store`` load their fabricated artifact or store."""
+    ``--params-store`` load their fabricated artifact or store, and
+    ``--checkpoint`` overlays a trained checkpoint's LoRA leaves."""
     gt = tmp_path / "gt.jsonl"
     gt.write_text("".join(json.dumps(a) + "\n" for a in _annotations(1)))
     argv = ["--annotation-file", str(gt), "--output-file", str(tmp_path / "p.jsonl"),
             "--model-size", "tiny", "--video-source", "synthetic", "--device", "cpu"]
     name = flag.split("=")[0]
+    if name == "--checkpoint":
+        from mraudio_tpu_torch.train.checkpoint import save_checkpoint
+
+        leaf = "llm/layer_1/mlp/up_proj/lora_b"
+        trained = torch.arange(2 * 128, dtype=torch.float32).reshape(2, 128) / 256
+        path = save_checkpoint(str(tmp_path), "best", {leaf: trained}, {}, 3)
+        model = _run_cli_capturing_model(monkeypatch, [*argv, f"{name}={path}"])
+        got = model.llm.layers[1].mlp.up_proj.lora_b
+        assert torch.equal(got, trained.to(got.dtype))
+        return
     if name in _LOADS:
         paths, store = fabricated
         value = store if name == "--params-store" else paths[_LOADS[name][0]]
@@ -365,14 +376,15 @@ GOLDEN_ANNOTATIONS = [
 def test_golden_pipeline_outputs():
     """``tests/golden/tiny_pipeline.json``'s generate outputs: the golden
     test's config (bf16, no quantization, chunked attention), its
-    annotations and JAX ``PRNGKey(0)`` weights, uncast."""
+    annotations and JAX ``PRNGKey(0)`` weights (the init compiled, as at
+    full size: the eager init takes ~20 s), uncast."""
     import pathlib
 
     want = json.loads((pathlib.Path(__file__).parent / "golden" / "tiny_pipeline.json")
                       .read_text())["outputs"]
     jcfg = JRunConfig(model=j_tiny(), data=j_tiny_data(n_frms=4))
     params = jax.device_get(JModel(jcfg.model, audio_cfg=jcfg.data.audio)
-                            .init_params(jax.random.PRNGKey(0)))
+                            .init_params(jax.random.PRNGKey(0), jit=True))
     cfg = RunConfig(model=tiny_model_config(), data=tiny_data_config(n_frms=4))
     model = load_jax_params_(XInstructBLIP(cfg.model, audio_cfg=cfg.data.audio,
                                            device="cpu"), params)

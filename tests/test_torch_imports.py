@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``mraudio_tpu_torch`` and not
-``chip_smoke.py`` imports JAX, flax or the JAX package, and none imports
+``chip_smoke.py`` imports JAX, flax, optax, orbax or the JAX package, and none imports
 PyYAML, ``transformers`` or ``tokenizers`` at module level (the card's
 machine has no HF packages)."""
 
@@ -12,7 +12,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "mraudio_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "mraudio_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mraudio_tpu")
 LAZY = ("yaml", "transformers", "tokenizers")     # imported inside the functions that need them
 
 
@@ -43,7 +43,8 @@ def test_package_imports_without_jax():
         "for m in pkgutil.walk_packages(pkg.__path__, 'mraudio_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'orbax', 'mraudio_tpu', 'yaml', 'transformers', 'tokenizers'))\n"
+        "('jax', 'flax', 'optax', 'orbax', 'mraudio_tpu', 'yaml', 'transformers', "
+        "'tokenizers'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

@@ -557,8 +557,20 @@ def _holds(param, path, key) -> bool:
 def test_cli_unported_flags_raise(ann_file, tmp_path, flag, fabricated, monkeypatch):
     """Unported flags raise, naming their ROADMAP.md item; ``--model-path``,
     ``--audio-encoder`` and ``--params-store`` load their fabricated
-    artifact or store, and the CLI serves with it."""
+    artifact or store, and the CLI serves with it; ``--checkpoint``
+    overlays a trained checkpoint's LoRA leaves."""
     paths, store = fabricated
+    if flag[0] == "--checkpoint":
+        from mraudio_tpu_torch.train.checkpoint import save_checkpoint
+
+        leaf = "llm/layer_0/attn/q_proj/lora_a"
+        trained = torch.arange(64 * 2, dtype=torch.float32).reshape(64, 2) / 128
+        path = save_checkpoint(str(tmp_path), "best", {leaf: trained}, {}, 3)
+        model = _serve_capturing_model(monkeypatch, ann_file, tmp_path / "x.jsonl", flag[0],
+                                       path)
+        got = model.llm.layers[0].attn.q_proj.lora_a
+        assert torch.equal(got, trained.to(got.dtype))
+        return
     if flag[0] not in ("--model-path", "--audio-encoder", "--params-store"):
         with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.\d"):
             _cli(ann_file, tmp_path / "x.jsonl", *flag)
