@@ -1,7 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--out results.json]
-                          [--only kernels,models,evaluate,serve,converted,train]
+                          [--only kernels,models,evaluate,serve,converted,train,videollama]
 
 Phases, each printing one JSON line with its seconds:
 
@@ -42,8 +42,9 @@ Phases, each printing one JSON line with its seconds:
    (60 frames of 224² RGB, 152 s of 16 kHz audio), random weights from a
    seed, in the slice configuration (both kernels, one-shot prefill);
    launch counts are read around this run and asserted;
-6. profile: one more generate under ``torch.profiler``: each phase's
-   (encode, prefill, decode) device time per kernel and idle share;
+6. profile: one more generate under ``torch.profiler``, decoding
+   ``PROFILE_TOKENS`` (16) tokens: each phase's (encode, prefill, decode)
+   device time per kernel and idle share;
 7. segmented prefill: the same model and batch with ``prefill_chunk=2048``
    (3 segments: flash on the first, ``chunked_attention`` on the others);
    launch counts asserted, logits compared with the one-shot run; then
@@ -59,7 +60,8 @@ Phases, each printing one JSON line with its seconds:
     in the deployed default configuration (chunked attention, XLA-route
     projections, no kernel: 0 launches asserted) on 5 synthetic QVH clips
     at batch 3, its JSONL checked and scored with the port's scorer; then
-    its first batch once more under ``--profile-dir``, broken down as in 6;
+    its first batch once more under ``--profile-dir`` with a 16-token
+    budget, broken down as in 6;
 11. fast evaluate: the same with ``--fast`` (the yuv420 wire, the
     temporal-residual ViT, grammar decoding): 0 kernel launches and 0
     invalid predictions asserted;
@@ -109,10 +111,30 @@ Phases, each printing one JSON line with its seconds:
     card against the port's own CPU run (a label shift must fail), remat
     on and off bit-identical, 4 micro-steps against 2 + preempt + 2
     resumed bit-identical, a non-finite loss moving nothing, and the
-    evaluate CLI with ``--checkpoint`` through a JSON config.
+    evaluate CLI with ``--checkpoint`` through a JSON config;
+18. videollama, the second backbone: (a) both kernels at its shapes:
+    flash at the EVA-ViT-g + Vicuna model's prefill (4 clips, 1148
+    tokens, left-padded prompts) and at the 2.1-AV model's (1 clip, 11123
+    tokens, 28 query heads over 4 KV heads), under the flash rule and its
+    controls; the GEMV at the 2.1-AV decode's five bf16 shapes (Qwen2's
+    projections and its 152064-wide lm_head at M = 1), bit-identical
+    across launch settings and to ``decode_gemv_in_order``; each timed
+    beside bound and library call; (b) the evaluate CLI with ``--model
+    VideoLLaMA`` at full width and depth in the default configuration on
+    5 synthetic QVH clips at batch 4 (0 launches), and its first batch
+    again under ``--profile-dir`` (16 tokens); (c) the model in process in the slice
+    routes: 32 flash and 224 GEMV launches per pass, ``lookup_spec=4``
+    giving greedy's tokens, the first-step logits against the default
+    routes; (d) the published VideoLLaMA2.1-AV architecture (SigLIP-
+    so400m, Qwen2-7B in bf16, BEATs) seeded at full width and depth on one
+    clip in the slice routes: 28 flash and 197 GEMV launches per pass, its
+    first-step logits held against the default routes; (e) the finetune
+    CLI with ``--model VideoLLaMA`` as in 17: finite losses, the LoRA B,
+    connector and audio projector leaves moved, no frozen leaf changed, 0
+    launches.
 
 ``--only`` runs the named groups of phases (kernels: 3; models: 4-9;
-evaluate: 10-11; serve: 12-15; converted: 16; train: 17; spec_width: the probe of
+evaluate: 10-11; serve: 12-15; converted: 16; train: 17; videollama: 18; spec_width: the probe of
 the serving engine at ``spec_width`` 20 against 1, ROADMAP C.2, which a
 full run leaves out) after the build, for debugging; such a run prints
 no summary and no ``ok`` line.
@@ -157,7 +179,13 @@ SMALL_LOGIT_ATOL = 3e-2                  # bf16 model, card vs CPU rounding
 GEMV_SUM_ERR = 4.0
 
 
+# each phase's seconds, as emitted; ``--out`` writes them beside the results
+PHASE_SECONDS: dict = {}
+
+
 def emit(obj) -> None:
+    if "phase" in obj and "seconds" in obj:
+        PHASE_SECONDS[obj["phase"]] = obj["seconds"]
     print(json.dumps(obj), flush=True)
 
 
@@ -270,18 +298,34 @@ def check_flash_cases(dev, gen) -> list:
             flash_case(dev, 2, 4, 777, 1000, 128, True, gen, [(0, 0)])]
 
 
-def check_flash(dev, b, h, s, kv, d, gen):
+# the X-InstructBLIP prefix's masks: interior padding in its timestamp slots
+# (row 1), left padding (row 2); the controls re-open the interior padding
+# and close one kv tile
+XIB_FLASH_MASK = (((1, slice(1000, 1040)), 0), ((2, slice(0, 17)), 0))
+XIB_FLASH_CONTROLS = (("interior_padding_ignored", (1, slice(1000, 1040)), 1),
+                      ("kv_tile_skipped", (2, slice(2944, 3072)), 0))
+
+
+def check_flash(dev, b, h, s, kv, d, gen, holes=XIB_FLASH_MASK, controls=XIB_FLASH_CONTROLS,
+                kv_from_heads: int = 0):
+    """Flash at a prefill's shape against its plain version under the
+    per-element rule, with two controls that must fail it; timed beside
+    its bound and SDPA.  ``holes``: masked (row, columns) besides the
+    unwritten cache columns and key 0 of row 0 (a fully masked query).
+    ``kv_from_heads``: K and V come from that many KV heads repeated to
+    ``h`` (grouped-query attention, as ``models/llama.py`` feeds them)."""
     from mraudio_tpu_torch.ops.attention import flash_attention, flash_attention_plain
 
     # the prefill's layout: (B, S, H, D) buffers read through transposed views
     q = torch.randn((b, s, h, d), generator=gen, device=dev).to(torch.bfloat16).transpose(1, 2)
-    k = torch.randn((b, kv, h, d), generator=gen, device=dev).to(torch.bfloat16).transpose(1, 2)
-    v = torch.randn((b, kv, h, d), generator=gen, device=dev).to(torch.bfloat16).transpose(1, 2)
+    kvh = kv_from_heads or h
+    k, v = (torch.randn((b, kv, kvh, d), generator=gen, device=dev).to(torch.bfloat16)
+            .repeat_interleave(h // kvh, dim=2).transpose(1, 2) for _ in range(2))
     mask = torch.ones((b, kv), dtype=torch.int32, device=dev)
     mask[:, s:] = 0                 # cache columns the prefill has not written
     mask[0, 0] = 0                  # query row 0 of batch row 0: fully masked
-    mask[1, 1000:1040] = 0          # interior padding (timestamp slots)
-    mask[2, :17] = 0                # left padding
+    for cols, value in holes:
+        mask[cols] = value
     out = flash_attention(q, k, v, mask, causal=True)
     ref = flash_attention_plain(q, k, v, mask, causal=True)
     torch.cuda.synchronize()
@@ -296,14 +340,14 @@ def check_flash(dev, b, h, s, kv, d, gen):
         raise AssertionError("flash_attention: non-finite output")
     # controls: the output of a kernel that ignored the interior padding,
     # or skipped one kv tile, must fail the same check
-    controls = {}
-    for name, cols, value in (("interior_padding_ignored", (1, slice(1000, 1040)), 1),
-                              ("kv_tile_skipped", (2, slice(2944, 3072)), 0)):
+    controls_err = {}
+    for name, cols, value in controls:
         bad_mask = mask.clone()
         bad_mask[cols] = value
-        controls[name] = flash_excess(flash_attention(q, k, v, bad_mask, causal=True), ref)
-        if not controls[name] > 1.0:
-            raise AssertionError(f"flash check cannot tell {name}: {controls[name]} x its limit")
+        controls_err[name] = flash_excess(flash_attention(q, k, v, bad_mask, causal=True), ref)
+        if not controls_err[name] > 1.0:
+            raise AssertionError(f"flash check cannot tell {name}: {controls_err[name]} x its "
+                                 "limit")
 
     ms = cuda_ms(lambda: flash_attention(q, k, v, mask, causal=True), iters=10)
     plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, mask, causal=True), iters=2)
@@ -322,9 +366,10 @@ def check_flash(dev, b, h, s, kv, d, gen):
     nbytes = 2.0 * (2 * b * h * s * d + 2 * b * h * kv * d) + 4.0 * b * kv
     bms, by = bound_ms(nbytes, flops, PEAK_BF16_TENSOR_FLOPS)
     return dict(name="flash_attention", max_abs_err=max_err, err_over_limit=excess,
-                controls_err_over_limit=controls, ms=ms, plain_ms=plain_ms,
+                controls_err_over_limit=controls_err, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bms, bound_by=by,
-                shape=dict(b=b, h=h, s=s, kv=kv, d=d), flops=flops, bytes=nbytes)
+                shape=dict(b=b, h=h, s=s, kv=kv, d=d, kv_heads=kvh), flops=flops,
+                bytes=nbytes)
 
 
 def _gemv_inputs(b, kdim, n, int8, gen, copies=1):
@@ -846,17 +891,33 @@ def _windows(text: str) -> list:
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
+# Decode steps of a traced generate: a trace's size and the time to write
+# and read it grow with the steps (about 1.4 s per step of a 32-layer
+# batch), and every greedy step of a random-weight model does the same work,
+# so the traced runs decode this many tokens; their decode seconds are held
+# against the unprofiled run's per-step time.
+PROFILE_TOKENS = 16
+
+
+def traced_unprofiled(stats: dict, steps: int = PROFILE_TOKENS) -> dict:
+    """The unprofiled run's phase seconds with decode scaled to ``steps``."""
+    return {"encode_s": stats["encode_s"], "prefill_s": stats["prefill_s"],
+            "decode_s": stats["decode_s"] * steps / stats["decode_steps"]}
+
+
 def profile_generate(model, batch, unprofiled: dict, top: int = 12) -> dict:
-    """One more ``generate`` under ``torch.profiler``, broken down by
-    :func:`phase_breakdown`."""
+    """One more ``generate`` under ``torch.profiler``, decoding
+    :data:`PROFILE_TOKENS` tokens, broken down by :func:`phase_breakdown`."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+            model_settings(model, max_new_tokens=PROFILE_TOKENS):
         model.generate(batch=batch, stats={})
     trace = Path(__file__).resolve().parent / "build" / "profile" / "generate_trace.json"
     trace.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(trace))
-    return phase_breakdown(trace, unprofiled, top)
+    return dict(decode_tokens_traced=PROFILE_TOKENS,
+                **phase_breakdown(trace, traced_unprofiled(unprofiled), top))
 
 
 def phase_breakdown(trace: Path, unprofiled: dict | None, top: int = 12,
@@ -1096,7 +1157,7 @@ def lookup_decode(model, batch, greedy: dict, greedy_tokens) -> dict:
     return dict(tokens_equal_greedy=True, greedy_steps=greedy["decode_steps"], **_summary(run))
 
 
-def evaluate_cli(fast: bool = False) -> dict:
+def evaluate_cli(fast: bool = False, model: str = "X-InstructBLIP") -> dict:
     """The evaluate CLI in-process at full width in the deployed default
     configuration (``--model-size full``: chunked attention, XLA-route
     projections, ``prefill_chunk=2048``) on 5 synthetic QVH clips at batch
@@ -1104,16 +1165,21 @@ def evaluate_cli(fast: bool = False) -> dict:
     scorer on its JSONL.  The default configuration routes around both
     kernels: 0 launches of each are asserted.  ``fast`` adds ``--fast``
     (the yuv420 wire, the temporal-residual ViT, grammar decoding at
-    ``spec_width=4``): then no prediction may be invalid."""
+    ``spec_width=4``): then no prediction may be invalid.  ``model=
+    "VideoLLaMA"`` runs ``--model VideoLLaMA`` at batch 4 (``bench.py``'s
+    videollama profile; its 1148-token prefix is one prefill segment)."""
     from mraudio_tpu_torch.cli import evaluate as cli
     from mraudio_tpu_torch.eval.mr_eval import eval_submission
     from mraudio_tpu_torch.eval.span_utils import load_jsonl
     from mraudio_tpu_torch.ops.attention import flash_attention
     from mraudio_tpu_torch.ops.gemv import decode_gemv
 
-    root = Path(__file__).resolve().parent / "build" / ("smoke_fast" if fast else "smoke")
+    videollama = model == "VideoLLaMA"
+    name = "smoke_videollama" if videollama else ("smoke_fast" if fast else "smoke")
+    root = Path(__file__).resolve().parent / "build" / name
     root.mkdir(parents=True, exist_ok=True)
-    extra = ["--fast"] if fast else []
+    extra = (["--fast"] if fast else []) + ["--model", model]
+    bs, segments = (VL_BATCH, 1) if videollama else (3, 3)
     anns = [{"vid": f"v{i}", "qid": i, "query": QUERIES[i % 3], "duration": 150,
              "relevant_windows": [[10.0 + 24 * i, 34.0 + 24 * i]]} for i in range(5)]
     gt, out = root / "annotations.jsonl", root / "predictions.jsonl"
@@ -1126,13 +1192,13 @@ def evaluate_cli(fast: bool = False) -> dict:
     t = time.perf_counter()
     result = cli.main(["--annotation-file", str(gt), "--output-file", str(out),
                        "--model-size", "full", "--video-source", "synthetic",
-                       "--batch-size", "3", *extra])
+                       "--batch-size", str(bs), *extra])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = {"flash_attention": flash_attention.launches, "decode_gemv": decode_gemv.launches}
     if launches != {"flash_attention": 0, "decode_gemv": 0}:
-        raise AssertionError(f"evaluate (default config{', --fast' if fast else ''}) launched "
-                             f"kernels: {launches}")
+        raise AssertionError(f"evaluate ({model}, default config{', --fast' if fast else ''}) "
+                             f"launched kernels: {launches}")
     records = load_jsonl(str(out))
     if [r["qid"] for r in records] != list(range(5)) or records != result["records"]:
         raise AssertionError(f"evaluate wrote qids {[r['qid'] for r in records]}")
@@ -1143,7 +1209,7 @@ def evaluate_cli(fast: bool = False) -> dict:
                 or not all(isinstance(w, list) and len(w) == 2 for w in wins)):
             raise AssertionError(f"evaluate: record off the submission schema: {r}")
     batches = result["batches"]
-    if len(batches) != 2 or any(bt["prefill_segments"] != 3 for bt in batches):
+    if len(batches) != 2 or any(bt["prefill_segments"] != segments for bt in batches):
         raise AssertionError(f"evaluate: batches {batches}")
     metrics = eval_submission(records, anns, verbose=False)
     if fast and metrics["brief"]["MR-full-invalid_pred_num"] != 0:
@@ -1151,12 +1217,24 @@ def evaluate_cli(fast: bool = False) -> dict:
     peak = torch.cuda.max_memory_allocated()
 
     # the first batch once more under --profile-dir: where its time goes
+    # (without --fast, decoding PROFILE_TOKENS tokens: a config file with
+    # that budget; grammar decoding ends its spans in fewer passes anyway)
     gt3 = root / "annotations_batch0.jsonl"
-    gt3.write_text("".join(json.dumps(a) + "\n" for a in anns[:3]))
+    gt3.write_text("".join(json.dumps(a) + "\n" for a in anns[:bs]))
+    size, unprofiled = ["--model-size", "full"], batches[0]
+    if not fast:
+        from mraudio_tpu_torch.config import DataConfig, RunConfig, full_model_config
+
+        traced = root / "traced_config.json"
+        traced.write_text(json.dumps(RunConfig(
+            model=full_model_config().replace(max_new_tokens=PROFILE_TOKENS),
+            data=DataConfig.for_dataset("QVH")).to_dict()))
+        size, unprofiled = ["--config", str(traced)], traced_unprofiled(batches[0])
     cli.main(["--annotation-file", str(gt3), "--output-file", str(root / "profiled.jsonl"),
-              "--model-size", "full", "--video-source", "synthetic", "--batch-size", "3",
+              *size, "--video-source", "synthetic", "--batch-size", str(bs),
               "--profile-dir", str(root / "profile"), *extra])
-    breakdown = phase_breakdown(root / "profile" / "trace.json", batches[0])
+    breakdown = phase_breakdown(root / "profile" / "trace.json", unprofiled)
+    breakdown["decode_tokens_traced"] = 64 if fast else PROFILE_TOKENS
     return dict(records=len(records), launches=launches, clips_per_sec=result["clips_per_sec"],
                 wall_s_with_model_build=wall, stages=result["stages"], batches=batches,
                 prefix_len=batches[0]["prefix_len"], peak_mem_bytes=peak,
@@ -1750,11 +1828,14 @@ trace = chip_smoke.Path(chip_smoke.__file__).resolve().parent / "build" / "profi
 def timed(self, batch):
     m = self.model
     if out["seq_len"] is None:
-        text = m.prepare_text(batch.text_input, batch.timestamps, batch.duration,
-                              text_output=batch.text_output)
         n = batch.timestamps.shape[1]
-        out["seq_len"] = int(m.prefix_mask_host(text, n).shape[1] - text.prompt_mask.shape[1]
-                             + text.concat_ids.shape[1])
+        if hasattr(m, "prepare_text"):
+            text = m.prepare_text(batch.text_input, batch.timestamps, batch.duration,
+                                  text_output=batch.text_output)
+            out["seq_len"] = int(m.prefix_mask_host(text, n).shape[1]
+                                 - text.prompt_mask.shape[1] + text.concat_ids.shape[1])
+        else:   # VideoLLaMA: the connector's and the audio tokens, prompt + target
+            out["seq_len"] = chip_smoke.vl_prefix_len(m.cfg, n) + m.cfg.max_output_txt_len
         out["n_frms"] = int(n)
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -1765,8 +1846,8 @@ def timed(self, batch):
         out["step_s"].append(time.perf_counter() - t)
         trace.parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(trace))
-        out["profile_step4"] = chip_smoke.phase_breakdown(
-            trace, None, names=("encode", "loss_fwd_bwd", "optimizer"))
+        spans = ("encode",) * self.split_encode + ("loss_fwd_bwd", "optimizer")
+        out["profile_step4"] = chip_smoke.phase_breakdown(trace, None, names=spans)
     else:
         loss = real(self, batch)
         torch.cuda.synchronize()
@@ -1774,7 +1855,31 @@ def timed(self, batch):
     out["train_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     return loss
 
+real_train = trainer_mod.Trainer.train
+
+def digests(params):
+    return [(float(p.detach().double().sum()), float(p.detach().double().abs().sum()))
+            for p in params]
+
+def checked_train(self):
+    # the run, with every frozen leaf's digest (f64 sum and sum of |x|)
+    # taken before and after it, and each trainable leaf compared
+    trained = {id(p) for p in self.trainable.values()}
+    frozen = [p for p in self.model.parameters() if id(p) not in trained]
+    before, start = digests(frozen), {k: p.detach().clone() for k, p in self.trainable.items()}
+    summary = real_train(self)
+    out["frozen_leaves"] = len(frozen)
+    out["frozen_changed"] = sum(a != b for a, b in zip(before, digests(frozen)))
+    moved = {}
+    for k, p in self.trainable.items():
+        group = k.split("/")[-1] if k.startswith("llm/") else k.split("/")[0]
+        n, total = moved.get(group, (0, 0))
+        moved[group] = (n + int(not torch.equal(p.detach(), start[k])), total + 1)
+    out["trainable_moved"] = moved
+    return summary
+
 trainer_mod.Trainer.train_step = timed
+trainer_mod.Trainer.train = checked_train
 chip_smoke.set_launches(0)
 t = time.perf_counter()
 summary = finetune.main(sys.argv[1:])
@@ -1793,23 +1898,26 @@ def train_annotations(n: int, start: int = 0) -> list:
             for i in range(start, start + n)]
 
 
-def finetune_cli() -> dict:
+def finetune_cli(model: str = "X-InstructBLIP") -> dict:
     """The finetune CLI in a process of its own at full width and depth in
     its default full configuration (int8 Vicuna-7B, LoRA r 8 on the seven
     projections, block remat, AdamW under 2 accumulation steps, crops,
     the nan guard): 8 synthetic QVH clips at batch 2 (4 micro-steps, 2
     updates), 1 epoch, validation on 2 clips.  Every loss must be finite,
-    every LoRA B (zero at init) non-zero after the run, ``checkpoint_0``
-    and its sidecar written, ``checkpoint_best`` too exactly when the val
-    MR-full-R1-avg beat 0 (the JAX trainer's rule: random weights rarely
-    give a window that scores), and neither kernel launched.  The readings
-    are printed before the checks."""
+    every LoRA B (zero at init) non-zero after the run, no frozen leaf
+    changed, ``checkpoint_0`` and its sidecar written, ``checkpoint_best``
+    too exactly when the val MR-full-R1-avg beat 0 (the JAX trainer's
+    rule: random weights rarely give a window that scores), and neither
+    kernel launched.  ``model="VideoLLaMA"`` trains the second backbone
+    (``--model VideoLLaMA``), whose connector and audio projector leaves
+    must move too.  The readings are printed before the checks."""
     from mraudio_tpu_torch.config import AudioFrontendConfig, DATASET_MAX_AUDIO_SECONDS
     from mraudio_tpu_torch.config import full_model_config
     from mraudio_tpu_torch.train.checkpoint import load_checkpoint
     from mraudio_tpu_torch.utils.flops import peak_flops_for, train_step_flops
 
-    root = Path(__file__).resolve().parent / "build" / "smoke_train"
+    videollama = model == "VideoLLaMA"
+    root = Path(__file__).resolve().parent / "build" / f"smoke_train_{model}"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
     train_ann, val_ann, out = root / "train.jsonl", root / "val.jsonl", root / "out"
@@ -1819,7 +1927,7 @@ def finetune_cli() -> dict:
     args = ["--model-size", "full", "--video-source", "synthetic", "--batch-size",
             str(TRAIN_BATCH), "--max-epoch", "1", "--save-freq", "1",
             "--train-annotation-file", str(train_ann), "--val-annotation-file", str(val_ann),
-            "--output-dir", str(out)]
+            "--output-dir", str(out), "--model", model]
     t = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", _FINETUNE_RUNNER, *args],
                           cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
@@ -1835,10 +1943,15 @@ def finetune_cli() -> dict:
     val = [e for e in events if e["event"] == "val"]
     step_s = run["step_s"]
     median_s = float(np.median(step_s[1:4]))
-    cfg = full_model_config()
-    flops = train_step_flops(cfg, AudioFrontendConfig(
-        max_audio_seconds=DATASET_MAX_AUDIO_SECONDS["QVH"]), run["n_frms"], TRAIN_BATCH,
-        run["seq_len"], grad_checkpoint=True)
+    audio_cfg = AudioFrontendConfig(max_audio_seconds=DATASET_MAX_AUDIO_SECONDS["QVH"])
+    if videollama:
+        from mraudio_tpu_torch.models.videollama import videollama_config_from
+
+        flops = vl_train_step_flops(videollama_config_from(full_model_config(), run["n_frms"]),
+                                    audio_cfg, run["n_frms"], TRAIN_BATCH, run["seq_len"])
+    else:
+        flops = train_step_flops(full_model_config(), audio_cfg, run["n_frms"], TRAIN_BATCH,
+                                 run["seq_len"], grad_checkpoint=True)
     peak = peak_flops_for(torch.cuda.get_device_name(0))
     trained = load_checkpoint(str(out / "checkpoint_0"))["model"]
     lora_b = {k: v for k, v in trained.items() if k.endswith("lora_b")}
@@ -1853,14 +1966,22 @@ def finetune_cli() -> dict:
                   peak_mem_bytes=run["peak_mem_bytes"], val=val, lora_b_moved=moved,
                   lora_b_leaves=len(lora_b), checkpoint_best_written=(out / "checkpoint_best")
                   .is_file(), launches=run["launches"], profile_step4=run["profile_step4"],
-                  summary=run["summary"])
+                  summary=run["summary"], trainable_moved=run["trainable_moved"],
+                  frozen_leaves=run["frozen_leaves"], frozen_changed=run["frozen_changed"])
     emit({"phase": "finetune_readings", **result})
     if len(losses) != TRAIN_CLIPS // TRAIN_BATCH or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"finetune: losses {losses}")
     if run["launches"] != {"flash_attention": 0, "decode_gemv": 0}:
         raise AssertionError(f"finetune launched kernels: {run['launches']}")
-    if len(lora_b) != 7 * 32 or moved != len(lora_b):
+    if len(lora_b) != 7 * full_model_config().llm.num_layers or moved != len(lora_b):
         raise AssertionError(f"finetune: {moved} of {len(lora_b)} LoRA B leaves moved")
+    if run["frozen_changed"] or not run["frozen_leaves"]:
+        raise AssertionError(f"finetune: {run['frozen_changed']} of {run['frozen_leaves']} "
+                             "frozen leaves changed")
+    groups = ("lora_b", "connector", "audio_proj") if videollama else ("lora_b",)
+    if sorted(run["trainable_moved"]) != sorted(("lora_a",) + groups) or any(
+            run["trainable_moved"][g][0] != run["trainable_moved"][g][1] for g in groups):
+        raise AssertionError(f"finetune: trainable leaves moved {run['trainable_moved']}")
     names = ["checkpoint_0"] + (["checkpoint_best"] if best else [])
     for name in names:
         if not (out / name).is_file() or not (out / (name + ".meta.json")).is_file():
@@ -2091,13 +2212,259 @@ def _train_identities(dev, root: Path) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 18: VideoLLaMA, the second backbone
+# --------------------------------------------------------------------------
+
+VL_BATCH, VL_CLIPS = 4, 5          # bench.py's videollama profile: batch 4
+# shorter queries for rows 1 and 3 of the in-process batch: their prompts
+# (under 128 tokens) are left-padded, so the prefill meets masked keys
+# between the audio tokens and the prompt
+VL_SHORT_QUERIES = {1: "a dog runs", 3: "people dance"}
+# first-step logits of the 2.1-AV model, slice routes (flash, GEMV, one-shot
+# prefill) against the default routes (chunked_attention, XLA projections,
+# 2048-token segments), as ||delta|| / ||default||: each layer's attention
+# differs within the flash rule (2^-6 of a row's rms) and 28 layers carry it
+AV21_LOGITS_REL_L2 = 0.10
+
+
+def vl_prefix_len(cfg, n_frms: int) -> int:
+    """VideoLLaMA's prefill length: the connector's tokens, one audio token
+    per chunk, the prompt budget."""
+    return ((n_frms // cfg.temporal_stride) * (cfg.vit.num_patches // cfg.spatial_pool ** 2)
+            + n_frms + cfg.max_txt_len)
+
+
+def vl_train_step_flops(cfg, audio_cfg, n_frms: int, batch: int, seq_len: int) -> dict:
+    """Analytic FLOPs of one VideoLLaMA LoRA micro-step, counted as
+    ``utils/flops.py::train_step_flops`` counts X-InstructBLIP's: the
+    frozen towers forward; the trained connector and projector forward and
+    backward (3x); the LLM forward, its block recompute and the backward
+    through the activations (4x); the full-sequence lm_head 3x."""
+    from mraudio_tpu_torch.utils.flops import videollama_flops
+
+    f = videollama_flops(cfg, audio_cfg, n_frms, batch, seq_len, 0)
+    llm = cfg.llm
+    llm_fwd = f["prefill"] - batch * 2 * llm.hidden_size * llm.vocab_size
+    lm_head = batch * 2 * seq_len * llm.hidden_size * llm.vocab_size * 3.0
+    enc = f["vit"] + f["beats"] + 3.0 * f["connector"]
+    return {"encoders": enc, "llm": 4.0 * llm_fwd, "lm_head": lm_head,
+            "total": enc + 4.0 * llm_fwd + lm_head}
+
+
+def _vl_prompt_holes(cfg, rows: int) -> tuple:
+    """The masked interior columns of a VideoLLaMA prefill at batch ``rows``:
+    the left padding of each row's prompt (rows 1 and 3 of the in-process
+    batch take :data:`VL_SHORT_QUERIES`)."""
+    from mraudio_tpu_torch.text.prompts import build_query_prompt
+    from mraudio_tpu_torch.text.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer(cfg.llm.vocab_size)
+    p0 = vl_prefix_len(cfg, 60) - cfg.max_txt_len
+    holes = []
+    for r in range(rows):
+        prompt = build_query_prompt(VL_SHORT_QUERIES.get(r, QUERIES[r % 3])).strip()
+        pad = max(cfg.max_txt_len - len(tok.encode(prompt, add_special_tokens=True)), 0)
+        if pad:
+            holes.append(((r, slice(p0, p0 + pad)), 0))
+    return tuple(holes)
+
+
+def videollama_kernels(dev, gen) -> dict:
+    """Both kernels at the VideoLLaMA shapes.  Flash: the EVA-ViT-g +
+    Vicuna model's prefill (B = 4, 32 heads, S = 1148, interior padding
+    where the short prompts are left-padded) and the 2.1-AV model's (B = 1,
+    28 query heads over 4 KV heads repeated, S = 11123), under the flash
+    rule and its two controls, timed beside bound and SDPA.  GEMV: the
+    2.1-AV decode's five bf16 shapes at M = 1 (Qwen2's q/o, k/v, gate/up,
+    down and the 152064-wide lm_head), bit-identical across launch settings
+    and to ``decode_gemv_in_order``, within the plain rule; timed per Qwen2
+    layer (7 launches) and for the lm_head."""
+    from mraudio_tpu_torch.config import full_model_config
+    from mraudio_tpu_torch.models.videollama import videollama21_av_config, videollama_config_from
+
+    out = {}
+    vcfg = videollama_config_from(full_model_config(), 60)
+    s = vl_prefix_len(vcfg, 60)
+    holes = _vl_prompt_holes(vcfg, VL_BATCH)
+    (row, cols), _ = holes[0]
+    out["flash_videollama"] = check_flash(
+        dev, VL_BATCH, vcfg.llm.num_heads, s, s + vcfg.max_new_tokens + 16, vcfg.llm.head_dim,
+        gen, holes, (("interior_padding_ignored", (row, cols), 1),
+                     ("kv_tile_skipped", (2, slice(512, 640)), 0)))
+    acfg = videollama21_av_config(60)
+    s = vl_prefix_len(acfg, 60)
+    # the 2.1-AV clip's prompt as a short query would leave it: left-padded
+    (_, cols), _ = _vl_prompt_holes(acfg, 2)[0]
+    out["flash_av21"] = check_flash(
+        dev, 1, acfg.llm.num_heads, s, s + acfg.max_new_tokens + 16, acfg.llm.head_dim, gen,
+        (((0, cols), 0),), (("interior_padding_ignored", (0, cols), 1),
+                            ("kv_tile_skipped", (0, slice(2944, 3072)), 0)),
+        kv_from_heads=acfg.llm.num_kv_heads)
+    llm = acfg.llm
+    h, kvd = llm.hidden_size, llm.num_kv_heads * llm.head_dim
+    shapes = ((h, h), (h, kvd), (h, llm.intermediate_size), (llm.intermediate_size, h),
+              (h, llm.padded_vocab_size))
+    gemvs = [check_gemv(dev, 1, kdim, n, False, gen) for kdim, n in shapes]
+    per_layer = [gemvs[0]] * 2 + [gemvs[1]] * 2 + [gemvs[2]] * 2 + [gemvs[3]]
+    out["gemv"] = gemvs
+    out["gemv_layer"] = {key: sum(r[key] for r in per_layer)
+                         for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    out["gemv_lm_head"] = {key: gemvs[4][key]
+                           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return out
+
+
+def _vl_generate(model, batch, **changes) -> dict:
+    """One ``generate`` of a VideoLLaMA model with ``changes`` to its
+    config, launch counts read around it: ``layers`` flash launches (one-
+    shot prefill) and the GEMV's count for the passes made."""
+    stats = {}
+    set_launches(0)
+    torch.cuda.reset_peak_memory_stats()
+    with model_settings(model, **changes):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tokens = model.generate_submit(batch=batch, stats=stats).cpu()
+        texts = model.generate_finalize(tokens)
+        wall = time.perf_counter() - t
+    launches, passes = read_launches(), stats["decode_steps"]
+    want = {"flash_attention": model.llm.cfg.num_layers,
+            "decode_gemv": gemv_launches(model.llm.cfg, passes)}
+    if launches != want:
+        raise AssertionError(f"VideoLLaMA {changes}: launches {launches} for {passes} passes, "
+                             f"want {want}")
+    logits = stats["prefill_logits"][:, :model.llm.cfg.vocab_size].float()
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"VideoLLaMA {changes}: non-finite prefill logits")
+    return dict(tokens=tokens, logits=logits, texts=texts, launches=launches, passes=passes,
+                prefix_len=stats["prefix_len"], encode_s=stats["encode_s"],
+                prefill_s=stats["prefill_s"], decode_s=stats["decode_s"], wall_s=wall,
+                peak_mem_bytes=torch.cuda.max_memory_allocated())
+
+
+def _default_route_logits(model, batch) -> tuple:
+    """First-step logits of ``model`` under the default routes (chunked
+    attention, XLA-route projections, 2048-token prefill segments), one
+    decode step: no kernel may launch."""
+    stats = {}
+    set_launches(0)
+    with llm_settings(model, attention_impl="chunked", decode_gemv="xla", prefill_chunk=2048), \
+            model_settings(model, max_new_tokens=1):
+        model.generate_submit(batch=batch, stats=stats)
+    if read_launches() != {"flash_attention": 0, "decode_gemv": 0}:
+        raise AssertionError(f"default routes launched kernels: {read_launches()}")
+    return (stats["prefill_logits"][:, :model.llm.cfg.vocab_size].float(),
+            stats["prefill_segments"], stats["prefill_s"])
+
+
+def _vl_model(cfg, dev, seed: int):
+    from mraudio_tpu_torch.config import AudioFrontendConfig, DATASET_MAX_AUDIO_SECONDS
+    from mraudio_tpu_torch.models.casting import cast_params_for_inference
+    from mraudio_tpu_torch.models.convert_jax import init_random_
+    from mraudio_tpu_torch.models.videollama import VideoLLaMA
+
+    audio_cfg = AudioFrontendConfig(max_audio_seconds=DATASET_MAX_AUDIO_SECONDS["QVH"])
+    t = time.perf_counter()
+    model = VideoLLaMA(cfg, audio_cfg=audio_cfg, device=dev)
+    init_random_(model, seed=seed)
+    cast_params_for_inference(model)
+    lora = seed_lora_b_(model, seed)
+    torch.cuda.synchronize()
+    info = dict(init_s=time.perf_counter() - t, lora_targets_nonzero_b=lora,
+                params=sum(p.numel() for p in model.parameters()),
+                llm_params=sum(p.numel() for p in model.llm.parameters()),
+                param_bytes=sum(p.numel() * p.element_size() for p in model.parameters()))
+    return model, audio_cfg, info
+
+
+def videollama_slice(dev, seed: int = 0) -> dict:
+    """(c) The EVA-ViT-g + int8 Vicuna VideoLLaMA at full width and depth
+    in the slice routes (flash, GEMV, one-shot prefill) on 4 synthetic QVH
+    clips, two with left-padded prompts: 32 flash launches and 224 GEMV
+    launches per pass; ``lookup_spec=4`` must give greedy's tokens; the
+    first-step logits against the default routes are reported."""
+    from mraudio_tpu_torch.config import DATASET_N_FRMS, full_model_config, slice_model_config
+    from mraudio_tpu_torch.models.videollama import videollama_config_from
+    from mraudio_tpu_torch.text.prompts import build_query_prompt
+
+    n = DATASET_N_FRMS["QVH"]
+    cfg = videollama_config_from(slice_model_config(full_model_config()), n)
+    model, audio_cfg, info = _vl_model(cfg, dev, seed)
+    batch = qvh_batch(VL_BATCH, n, cfg.vit.image_size, audio_cfg.max_audio_seconds,
+                      audio_cfg.sampling_rate, seed=seed + 1)
+    for r, q in VL_SHORT_QUERIES.items():
+        batch.text_input[r] = build_query_prompt(q)
+    greedy = _vl_generate(model, batch)
+    lookup = _vl_generate(model, batch, lookup_spec=4)
+    if not torch.equal(lookup["tokens"], greedy["tokens"]):
+        raise AssertionError(f"VideoLLaMA lookup decoding differs from greedy: "
+                             f"{lookup['texts']} vs {greedy['texts']}")
+    default_logits, segments, default_prefill_s = _default_route_logits(model, batch)
+    diff = (greedy["logits"] - default_logits).abs()
+    del model
+    summary = {k: v for k, v in greedy.items() if k not in ("tokens", "logits")}
+    return dict(**info, layers=cfg.llm.num_layers, greedy=summary,
+                clips_per_s=VL_BATCH / greedy["wall_s"],
+                lookup={k: v for k, v in lookup.items() if k not in ("tokens", "logits", "texts")},
+                lookup_tokens_equal_greedy=True, launches=greedy["launches"],
+                lookup_launches=lookup["launches"],
+                first_step_logits_vs_default=dict(
+                    max_abs_diff=float(diff.max()),
+                    rel_l2=float((greedy["logits"] - default_logits).norm()
+                                 / default_logits.norm()),
+                    argmax_equal=bool(torch.equal(greedy["logits"].argmax(-1),
+                                                  default_logits.argmax(-1))),
+                    default_prefill_segments=segments, default_prefill_s=default_prefill_s))
+
+
+def videollama21_av(dev, seed: int = 0) -> dict:
+    """(d) The published 2.1-AV architecture (SigLIP-so400m, Qwen2-7B with
+    bf16 weights, BEATs) at full width and depth, seeded, in the slice
+    routes on one synthetic QVH clip: 28 flash launches and 197 GEMV
+    launches per pass (7 per layer and the lm_head, which tiles), plus the
+    prefill's lm_head; its first-step logits held against the default
+    routes (:data:`AV21_LOGITS_REL_L2`).  SigLIP's stride-14 patch
+    convolution reads the top-left 378² of a 384² frame, so the clip's
+    frames are 378²: the same 27 x 27 patches."""
+    from mraudio_tpu_torch.config import DATASET_N_FRMS
+    from mraudio_tpu_torch.models.videollama import videollama21_av_config
+
+    n = DATASET_N_FRMS["QVH"]
+    cfg = videollama21_av_config(n)
+    cfg = cfg.replace(llm=cfg.llm.replace(attention_impl="pallas", decode_gemv="pallas",
+                                          prefill_chunk=0))
+    model, audio_cfg, info = _vl_model(cfg, dev, seed)
+    grid = cfg.vit.image_size // cfg.vit.patch_size * cfg.vit.patch_size
+    batch = qvh_batch(1, n, grid, audio_cfg.max_audio_seconds, audio_cfg.sampling_rate,
+                      seed=seed + 1)
+    run = _vl_generate(model, batch)
+    default_logits, segments, default_prefill_s = _default_route_logits(model, batch)
+    rel = float((run["logits"] - default_logits).norm() / default_logits.norm())
+    del model
+    result = dict(**info, layers=cfg.llm.num_layers, frame=grid,
+                  greedy={k: v for k, v in run.items() if k not in ("tokens", "logits")},
+                  launches=run["launches"], gemv_launches_per_pass=gemv_launches(cfg.llm, 1) - 1,
+                  first_step_logits_vs_default=dict(
+                      rel_l2=rel, limit=AV21_LOGITS_REL_L2,
+                      max_abs_diff=float((run["logits"] - default_logits).abs().max()),
+                      logits_rms=float(default_logits.square().mean().sqrt()),
+                      argmax_equal=bool(torch.equal(run["logits"].argmax(-1),
+                                                    default_logits.argmax(-1))),
+                      default_prefill_segments=segments, default_prefill_s=default_prefill_s))
+    if not rel <= AV21_LOGITS_REL_L2:
+        raise AssertionError(f"2.1-AV: slice vs default first-step logits rel L2 {rel} > "
+                             f"{AV21_LOGITS_REL_L2}")
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="also write every phase's result to this JSON file")
     ap.add_argument("--only", default="",
                     help="comma-separated phases to run (kernels, models, evaluate, serve, "
-                         "converted, train, spec_width); a partial run prints no summary and "
-                         "no ok line")
+                         "converted, train, videollama, spec_width); a partial run prints no "
+                         "summary and no ok line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2299,9 +2666,41 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    if on("videollama"):
+        t = time.perf_counter()
+        results["vl_kernels"] = videollama_kernels(dev, gen)
+        emit({"phase": "videollama_kernels", **results["vl_kernels"],
+              "seconds": time.perf_counter() - t})
+
+        t = time.perf_counter()
+        results["vl_evaluate"] = evaluate_cli(model="VideoLLaMA")
+        emit({"phase": "videollama_evaluate", **results["vl_evaluate"],
+              "seconds": time.perf_counter() - t})
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()
+        results["vl_slice"] = videollama_slice(dev)
+        emit({"phase": "videollama_slice", **results["vl_slice"],
+              "seconds": time.perf_counter() - t})
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()
+        results["vl_av21"] = videollama21_av(dev)
+        emit({"phase": "videollama21_av", **results["vl_av21"],
+              "seconds": time.perf_counter() - t})
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()
+        results["vl_finetune"] = finetune_cli("VideoLLaMA")
+        emit({"phase": "videollama_finetune", **results["vl_finetune"],
+              "seconds": time.perf_counter() - t})
+
     if args.out:
         with open(args.out, "w") as f:
-            json.dump(results, f, indent=1, default=str)
+            json.dump({**results, "phase_seconds": PHASE_SECONDS}, f, indent=1, default=str)
     if only:
         emit({"partial": sorted(only)})
         return 0
@@ -2324,8 +2723,18 @@ def main() -> int:
                                    results["converted"]["evaluate"]["store"]["launches"][name],
                                "converted_serve":
                                    results["converted"]["serve"]["launches"][name],
-                               "train": results["finetune"]["launches"][name]}
+                               "train": results["finetune"]["launches"][name],
+                               "videollama_evaluate": results["vl_evaluate"]["launches"][name],
+                               "videollama_slice_greedy": results["vl_slice"]["launches"][name],
+                               "videollama_slice_lookup_4":
+                                   results["vl_slice"]["lookup_launches"][name],
+                               "videollama21_av_slice": results["vl_av21"]["launches"][name],
+                               "videollama_train": results["vl_finetune"]["launches"][name]}
                         for name in ("flash_attention", "decode_gemv")}
+    vl = results["vl_kernels"]
+
+    def at(r):      # a kernel's readings at one of the VideoLLaMA shapes
+        return {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")}
 
     kernels = [
         dict(name="flash_attention", route="cuda",
@@ -2335,7 +2744,9 @@ def main() -> int:
              launches_by_path=launches_by_path["flash_attention"],
              max_abs_err=flash["max_abs_err"], ms=flash["ms"], plain_ms=flash["plain_ms"],
              bound_ms=flash["bound_ms"], bound_by=flash["bound_by"],
-             library_ms=flash["library_ms"]),
+             library_ms=flash["library_ms"],
+             videollama={"b4_h32_s1148": at(vl["flash_videollama"]),
+                         "av21_b1_h28_kv4_s11123": at(vl["flash_av21"])}),
         dict(name="decode_gemv", route="cuda",
              source="mraudio_tpu_torch/csrc/decode_gemv.cu",
              replaces="mraudio_tpu/ops/gemv.py:109",
@@ -2344,7 +2755,10 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in gemvs + sum(gemvs_m.values(), [])),
              per="one decoder layer: q,k,v,o,gate,up,down int8 at B=3",
              bound_by="bytes", **gemv_layer,
-             **{f"b{m}": v for m, v in gemv_layer_m.items()}),
+             **{f"b{m}": v for m, v in gemv_layer_m.items()},
+             videollama={"av21_qwen2_layer_bf16_b1": vl["gemv_layer"],
+                         "av21_lm_head_bf16_b1": vl["gemv_lm_head"],
+                         "max_abs_err": max(r["max_abs_err"] for r in vl["gemv"])}),
     ]
     print(card, flush=True)
     emit({"kernels": kernels})

@@ -23,6 +23,14 @@ store itself is orbax, which needs JAX).  It is read with
         --audio-qformer /ckpts/audio_qformer_improved.pth \\
         --blip2 /ckpts/blip2_pretrained.pth \\
         --output /stores/xinstructblip_full.pt [--device cuda|cpu]
+
+    python -m mraudio_tpu_torch.cli.convert --model VideoLLaMA \\
+        --model-path /ckpts/videollama2_av.pth [--audio-encoder BEATs.pt] \\
+        --output /stores/videollama_full.pt
+
+For ``--model VideoLLaMA`` the ``--model-path`` checkpoint is the merged
+VideoLLaMA2-AV state dict (vision tower, projectors, BEATs and the LLM,
+``convert_weights.convert_videollama``).
 """
 
 from __future__ import annotations
@@ -109,7 +117,9 @@ def main(argv=None) -> str:
     parser.add_argument("--model-size", default="full", choices=["full", "tiny"])
     parser.add_argument("--config", default="", help="YAML RunConfig path")
     parser.add_argument("--output", required=True, help="param store file to write")
-    parser.add_argument("--model-path", default="", help="LLM weights (HF Llama state dict)")
+    parser.add_argument("--model-path", default="",
+                        help="LLM weights (HF Llama state dict; for VideoLLaMA, the merged AV "
+                             "checkpoint)")
     parser.add_argument("--audio-encoder", default="", help="BEATs .pt")
     parser.add_argument("--vit", default="", help="EVA-ViT-g .pth")
     parser.add_argument("--video-qformer", default="", help="video Q-Former bundle .pth")

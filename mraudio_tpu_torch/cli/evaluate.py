@@ -13,7 +13,10 @@ random from ``train.seed``, with the reference checkpoints the config,
 ``--model-path`` (the HF Vicuna state dict) and ``--audio-encoder`` (the
 BEATs checkpoint) name converted over them; ``--params-store`` loads a
 store of ``cli/convert.py`` instead; ``--checkpoint`` overlays the
-trained leaves of a checkpoint of ``cli/finetune.py``.  ``--fast`` applies
+trained leaves of a checkpoint of ``cli/finetune.py``.  ``--model
+VideoLLaMA`` runs the second backbone (``models/videollama.py``) from the
+same size knobs; its ``--model-path`` is the merged VideoLLaMA2-AV
+checkpoint.  ``--fast`` applies
 ``apply_fast_preset`` (temporal-residual ViT, yuv420 wire, grammar-
 constrained decoding with ``spec_width=4``).  Flags whose machinery is
 not ported raise ``NotImplementedError`` naming the ROADMAP.md item that
@@ -85,7 +88,8 @@ def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description="mraudio_tpu_torch batched inference")
     parser.add_argument("--model", default="X-InstructBLIP")
     parser.add_argument("--model-path", default="",
-                        help="LLM weights: an HF Llama state dict, converted at load")
+                        help="LLM weights: an HF Llama state dict (for VideoLLaMA, the merged "
+                             "AV checkpoint), converted at load")
     parser.add_argument("--checkpoint", default="", help="trained checkpoint dir to overlay")
     parser.add_argument("--audio-encoder", default="",
                         help="BEATs checkpoint, converted at load")

@@ -17,7 +17,9 @@ encoders run apart from the loss step); ``tiny`` the tiny presets;
 ``cli/convert.py``.  It writes ``checkpoint_best``, ``checkpoint_<epoch>``
 (each with a ``.meta.json`` sidecar) and ``train.jsonl`` to the output
 directory; ``--resume`` continues from a checkpoint (mid-epoch from
-``checkpoint_preempt``).  Flags whose machinery is not ported raise
+``checkpoint_preempt``).  ``--model VideoLLaMA`` trains the second
+backbone's LoRA adapters, connector and audio projector.  Flags whose
+machinery is not ported raise
 ``NotImplementedError`` naming the ROADMAP.md item that brings it.
 """
 
@@ -74,7 +76,8 @@ def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description="mraudio_tpu_torch finetuning")
     parser.add_argument("--model", default="X-InstructBLIP")
     parser.add_argument("--model-path", default="",
-                        help="LLM weights: an HF Llama state dict, converted at load")
+                        help="LLM weights: an HF Llama state dict (for VideoLLaMA, the merged "
+                             "AV checkpoint), converted at load")
     parser.add_argument("--audio-encoder", default="",
                         help="BEATs checkpoint, converted at load")
     parser.add_argument("--video-folder", default="")

@@ -18,7 +18,10 @@ random from ``train.seed`` with the checkpoints the config,
 ``--params-store`` of ``cli/convert.py``; ``--checkpoint`` overlays a
 trained checkpoint of ``cli/finetune.py``.  Flags whose machinery is not
 ported raise ``NotImplementedError`` naming the ROADMAP.md item that
-brings it.
+brings it.  ``--model VideoLLaMA`` raises too, naming ROADMAP.md C.3: the
+JAX package's serve CLI cannot serve that backbone either (its encode stream calls
+``prepare_text`` and its engine ``prefix_and_prompt``, which VideoLLaMA
+lacks).
 """
 
 from __future__ import annotations
@@ -516,6 +519,14 @@ def main(argv=None):
 
     args.num_chunks, args.chunk_idx, args.dataset = 1, 0, "QVH"
     cfg = build_config(args)
+    from mraudio_tpu_torch.models.factory import canonical_model_name
+
+    if canonical_model_name(cfg.model_name) == "VideoLLaMA":
+        raise NotImplementedError(
+            "serving VideoLLaMA: the JAX package's serve CLI cannot either (its request stream "
+            "calls model.prepare_text, mraudio_tpu/cli/serve.py:68, and its engine "
+            "prefix_and_prompt; VideoLLaMA has neither), so the port keeps the JAX "
+            "package's behaviour as a known difference (ROADMAP.md C.3)")
     if args.kv_keep:
         cfg = cfg.replace(model=cfg.model.replace(
             llm=cfg.model.llm.replace(kv_keep=args.kv_keep)))

@@ -42,9 +42,11 @@
 // double-buffered staging area into the segment's partial of each
 // output, which is stored straight into the shared memory of the CTA of
 // the cluster that finishes that output (distributed shared memory,
-// overlapped with the streaming).  After one cluster barrier, each CTA
-// adds, for its share of the strip's outputs, all segment partials in
-// ascending order: no atomics, no global scratch.  x rows of the CTA's
+// overlapped with the streaming; a cluster barrier at the start makes
+// sure every CTA has started before the first such store).  After the
+// closing cluster barrier, each CTA adds, for its share of the strip's
+// outputs, all segment partials in ascending order: no atomics, no
+// global scratch.  x rows of the CTA's
 // k range are staged once in shared memory, as f32.  Batch rows go R <= 4
 // at a time (grid.y).
 
@@ -154,6 +156,11 @@ __global__ void __launch_bounds__(THREADS) gemv_kernel(const __grid_constant__ C
     mbar_fence_init();
   }
   __syncthreads();
+  // Every CTA of the cluster must have started before any of them writes
+  // into another's shared memory (the partials below).  Without this
+  // barrier the 152064-wide lm_head (2376 strips, many waves of clusters)
+  // faulted with "unspecified launch failure" at cluster = 8.
+  cluster.sync();
 
   if (warp == 4) {  // producer
     if (lane == 0) {

@@ -118,8 +118,8 @@ def run_inference(
 
     # Preflight: the static timestamp/duration token budgets must hold
     # for this dataset's value range (truncation would corrupt the
-    # interleave).
-    if annotations:
+    # interleave); a backbone without them (VideoLLaMA) has none to check.
+    if hasattr(model, "prepare_text") and annotations:
         from mraudio_tpu_torch.text.tokenizer import validate_time_budgets
 
         max_dur = int(max(a["duration"] for a in annotations)) + 1
@@ -127,7 +127,8 @@ def run_inference(
 
     dataset = MRDataset(cfg.data, annotations=annotations, split="eval")
     fmt = cfg.model.time_format
-    want_saliency = bool(cfg.model.saliency_head)
+    # the model's own config: VideoLLaMA has no saliency head
+    want_saliency = bool(getattr(model.cfg, "saliency_head", False))
 
     def emit(batch, outputs, saliency, records):
         for row, (qid, query, vid, raw_out, dur, valid) in enumerate(zip(

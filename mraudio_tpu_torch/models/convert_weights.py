@@ -1,6 +1,7 @@
 """Checkpoint converters: the reference's torch checkpoints → the JAX
-package's parameter layout → the port's modules (the X-InstructBLIP part
-of the JAX package's ``models/convert_weights.py``).
+package's parameter layout → the port's modules (the JAX package's
+``models/convert_weights.py``, but for int4 and the ``scan_layers``
+layout).
 
 The reference assembles its model from heterogeneous checkpoints with
 key-routing surgery (``models/xinstructblip.py:614-655`` Q-Formers,
@@ -17,6 +18,11 @@ video/audio Q-Former      :func:`convert_qformer_bundle` (Q-Former +
                           filtered by the ``{modality}_`` prefixes)
 BLIP-2 stage-1 ``.pth``   :func:`convert_qformer_bundle` (fallback keys)
 Vicuna-7B HF weights      :func:`convert_llama_hf` (+ :func:`quantize_llama_int8`)
+VideoLLaMA2-AV merged     :func:`convert_videollama`: a CLIP
+checkpoint                (:func:`convert_clip_vit_hf`) or SigLIP
+                          (:func:`convert_siglip_vit_hf`) tower, the
+                          connector and audio projector MLPs, BEATs, a
+                          Llama or Qwen2 LLM
 ========================  =============================================
 
 Every converter takes a flat ``{torch_name: np.ndarray}`` dict (use
@@ -405,6 +411,130 @@ def convert_beats(sd: dict, cfg) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# HF CLIP / SigLIP vision towers and the merged VideoLLaMA2-AV checkpoint
+# ---------------------------------------------------------------------------
+
+
+def _hf_vit_blocks(g, cfg) -> dict:
+    """The encoder blocks of an HF CLIP/SigLIP vision tower (separate
+    q/k/v with biases, pre-LN) → ``EvaViT`` block params."""
+    heads, width = cfg.num_heads, cfg.width
+    out = {}
+    for i in range(cfg.depth):
+        pre = f"encoder.layers.{i}"
+        out[f"block_{i}"] = {
+            "norm1": {"LayerNorm_0": {"scale": g(f"{pre}.layer_norm1.weight"),
+                                      "bias": g(f"{pre}.layer_norm1.bias")}},
+            "norm2": {"LayerNorm_0": {"scale": g(f"{pre}.layer_norm2.weight"),
+                                      "bias": g(f"{pre}.layer_norm2.bias")}},
+            "attn": {
+                **{name: {"kernel": _heads(g(f"{pre}.self_attn.{proj}.weight"), heads),
+                          "bias": _heads_bias(g(f"{pre}.self_attn.{proj}.bias"), heads)}
+                   for name, proj in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"))},
+                "out": {"kernel": g(f"{pre}.self_attn.out_proj.weight").T.reshape(
+                            heads, width // heads, width),
+                        "bias": g(f"{pre}.self_attn.out_proj.bias")},
+            },
+            "mlp": {"fc1": {"kernel": g(f"{pre}.mlp.fc1.weight").T,
+                            "bias": g(f"{pre}.mlp.fc1.bias")},
+                    "fc2": {"kernel": g(f"{pre}.mlp.fc2.weight").T,
+                            "bias": g(f"{pre}.mlp.fc2.bias")}},
+        }
+    return out
+
+
+def convert_clip_vit_hf(sd: dict, cfg, prefix: str = "vision_model.") -> dict:
+    """HF ``CLIPVisionModel`` weights → ``EvaViT`` params (class embedding
+    and learned positions; the final ``post_layernorm`` is dropped: the
+    consumer normalizes)."""
+    g = lambda name: sd[f"{prefix}{name}"]
+    p, width = cfg.patch_size, cfg.width
+    conv = g("embeddings.patch_embedding.weight")  # (D, 3, p, p)
+    params = {
+        "patch_embed": {
+            "kernel": conv.transpose(2, 3, 1, 0).reshape(p * p * 3, width),
+            "bias": sd.get(f"{prefix}embeddings.patch_embedding.bias",
+                           np.zeros(width, np.float32)),
+        },
+        "cls_token": g("embeddings.class_embedding").reshape(1, 1, width),
+        "pos_embed": g("embeddings.position_embedding.weight")[None],
+    }
+    params.update(_hf_vit_blocks(g, cfg))
+    return params
+
+
+def convert_siglip_vit_hf(sd: dict, cfg, prefix: str = "vision_model.") -> dict:
+    """HF ``SiglipVisionModel`` weights → ``EvaViT`` params (the
+    VideoLLaMA2.1 tower): no class embedding (the config must say
+    ``use_class_token=False``), positions for the patches only; the final
+    ``post_layernorm`` and the attention-pooling ``head`` are dropped."""
+    if getattr(cfg, "use_class_token", True):
+        raise ValueError(
+            "SigLIP towers have no class token — build the ViTConfig with "
+            "use_class_token=False (see videollama21_av_config)")
+    g = lambda name: sd[f"{prefix}{name}"]
+    p, width = cfg.patch_size, cfg.width
+    conv = g("embeddings.patch_embedding.weight")  # (D, 3, p, p)
+    params = {
+        "patch_embed": {"kernel": conv.transpose(2, 3, 1, 0).reshape(p * p * 3, width),
+                        "bias": g("embeddings.patch_embedding.bias")},
+        "pos_embed": g("embeddings.position_embedding.weight")[None],
+    }
+    params.update(_hf_vit_blocks(g, cfg))
+    return params
+
+
+def convert_videollama(sd: dict, cfg) -> dict:
+    """A merged VideoLLaMA2-AV-style checkpoint → ``VideoLLaMA`` params:
+
+    * ``model.vision_tower.vision_tower.vision_model.*``: a CLIP tower
+      when it has ``embeddings.class_embedding``, else a SigLIP tower;
+    * ``model.mm_projector.{readout.}{0,2}``: the connector's
+      ``proj_in``/``proj_out`` (the projector's conv and downsampling
+      keys have no counterpart in the pooling connector and are dropped,
+      with a log line);
+    * ``model.audio_tower.*``: BEATs; ``model.mm_projector_a.{readout.}
+      {0,2}``: ``audio_proj.fc1``/``fc2``;
+    * ``model.embed_tokens/layers/norm`` + ``lm_head``: the LLM
+      (:func:`convert_llama_hf`; Qwen2's q/k/v biases need
+      ``cfg.llm.attention_bias``).
+
+    What the checkpoint lacks is left out."""
+    params: dict = {}
+    vision_prefix = "model.vision_tower.vision_tower.vision_model."
+    if any(k.startswith(vision_prefix) for k in sd):
+        if f"{vision_prefix}embeddings.class_embedding" in sd:
+            params["vit"] = convert_clip_vit_hf(sd, cfg.vit, prefix=vision_prefix)
+        else:
+            params["vit"] = convert_siglip_vit_hf(sd, cfg.vit, prefix=vision_prefix)
+
+    audio_prefix = "model.audio_tower."
+    audio_sd = {k[len(audio_prefix):]: v for k, v in sd.items() if k.startswith(audio_prefix)}
+    if audio_sd:
+        params["beats"] = convert_beats(audio_sd, cfg.beats)
+
+    def mlp_pair(prefix, names):
+        for base in (f"{prefix}readout.", prefix):
+            if f"{base}0.weight" in sd:
+                return {names[0]: _lin(sd, f"{base}0"), names[1]: _lin(sd, f"{base}2")}
+        return None
+
+    connector = mlp_pair("model.mm_projector.", ("proj_in", "proj_out"))
+    if connector:
+        params["connector"] = connector
+        dropped = [k for k in sd if k.startswith("model.mm_projector.") and ".readout." not in k]
+        if dropped:
+            logger.info("convert_videollama: dropped %d mm_projector conv/downsample keys "
+                        "(pooling connector has no counterpart)", len(dropped))
+    audio_proj = mlp_pair("model.mm_projector_a.", ("fc1", "fc2"))
+    if audio_proj:
+        params["audio_proj"] = audio_proj
+    if "model.embed_tokens.weight" in sd:
+        params["llm"] = convert_llama_hf(sd, cfg.llm)
+    return params
+
+
+# ---------------------------------------------------------------------------
 # Not ported yet
 # ---------------------------------------------------------------------------
 
@@ -415,18 +545,6 @@ def quantize_llama_int4(params: dict, group_size: int = 128) -> dict:
 
 def stack_llm_layers(llm: dict, num_layers: int) -> dict:
     raise NotImplementedError("the scan_layers layout is not ported yet (ROADMAP.md A.2)")
-
-
-def convert_videollama(sd: dict, cfg) -> dict:
-    raise NotImplementedError("VideoLLaMA is not ported yet (ROADMAP.md A.6)")
-
-
-def convert_clip_vit_hf(sd: dict, cfg, prefix: str = "vision_model.") -> dict:
-    raise NotImplementedError("the CLIP vision tower is not ported yet (ROADMAP.md A.6)")
-
-
-def convert_siglip_vit_hf(sd: dict, cfg, prefix: str = "vision_model.") -> dict:
-    raise NotImplementedError("the SigLIP vision tower is not ported yet (ROADMAP.md A.6)")
 
 
 # ---------------------------------------------------------------------------
@@ -441,13 +559,33 @@ def load_pretrained_params(model, cfg):
     bundles, the BLIP-2 stage-1 fallback, EVA-ViT, BEATs, the LLM
     (quantized to int8 when the config asks).  One artifact is held on
     the host at a time.  Returns ``model``, its parameters in the
-    checkpoints' dtypes (cast them with ``cast_params_for_inference``)."""
-    llm_cfg = cfg.model.llm
+    checkpoints' dtypes (cast them with ``cast_params_for_inference``).
+
+    For VideoLLaMA, ``cfg.llm_weights`` names the one merged checkpoint
+    (:func:`convert_videollama`; its LLM quantized to int8 when the
+    model's config asks), and ``cfg.beats_weights`` may overlay a BEATs
+    checkpoint after it."""
+    from mraudio_tpu_torch.models.videollama import VideoLLaMA
+
+    llm_cfg = model.cfg.llm if isinstance(model, VideoLLaMA) else cfg.model.llm
     if llm_cfg.quantization == "int4":
         raise NotImplementedError("int4 weights are not ported yet (ROADMAP.md A.2)")
     if llm_cfg.scan_layers:
         raise NotImplementedError("the scan_layers layout is not ported yet (ROADMAP.md A.2)")
     init_random_(model, seed=cfg.train.seed)
+
+    if isinstance(model, VideoLLaMA):
+        if cfg.llm_weights:
+            converted = convert_videollama(load_torch_state_dict(cfg.llm_weights), model.cfg)
+            if llm_cfg.quantization == "int8" and "llm" in converted:
+                converted["llm"] = quantize_llama_int8(converted["llm"])
+            overlay_jax_params_(model, converted)
+            logger.info("loaded VideoLLaMA checkpoint from %s", cfg.llm_weights)
+        if cfg.beats_weights:
+            overlay_jax_params_(model, {"beats": convert_beats(
+                load_torch_state_dict(cfg.beats_weights), model.cfg.beats)})
+            logger.info("loaded BEATs weights from %s", cfg.beats_weights)
+        return model
 
     qcfg = cfg.model.qformer
 

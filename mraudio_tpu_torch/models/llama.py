@@ -158,9 +158,9 @@ class LlamaLinear(nn.Module):
                  quantize_ok: bool = True, use_bias: bool = False):
         super().__init__()
         if quantize_ok and cfg.quantization == "int4":
-            raise NotImplementedError("int4 weights are not ported yet")
+            raise NotImplementedError("int4 weights are not ported yet (ROADMAP.md A.2)")
         if quantize_ok and cfg.quantization == "int8" and cfg.int8_dot:
-            raise NotImplementedError("the W8A8 int8_dot path is not ported yet")
+            raise NotImplementedError("the W8A8 int8_dot path is not ported yet (ROADMAP.md A.2)")
         self.cfg = cfg
         self.in_features, self.features = in_features, features
         self.dtype = torch_dtype(cfg.dtype)
@@ -404,7 +404,8 @@ class LlamaModel(nn.Module):
         super().__init__()
         for flag, on in (("scan_layers", cfg.scan_layers), ("mlp_seq_chunk", cfg.mlp_seq_chunk)):
             if on:
-                raise NotImplementedError(f"LlamaConfig.{flag} is not ported yet")
+                raise NotImplementedError(f"LlamaConfig.{flag} is not ported yet "
+                                          "(ROADMAP.md A.2)")
         if cfg.kv_quant not in ("none", "int8"):
             raise NotImplementedError(f"kv_quant={cfg.kv_quant!r} is not ported yet")
         self.cfg = cfg

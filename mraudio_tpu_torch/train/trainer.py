@@ -22,7 +22,12 @@ checkpoints (the JAX package's ``train/trainer.py``).
 
 Refused (``NotImplementedError`` naming the ROADMAP.md item):
 ``quant_frozen="int8"`` (A.2), ``encoder_window`` and ``upload_overlap``
-(A.11), a mesh of more than one device (A.7), VideoLLaMA (A.6).
+(A.11), a mesh of more than one device (A.7).
+
+Both backbones train: X-InstructBLIP (LoRA, and the saliency head) and
+VideoLLaMA (LoRA, the connector and the audio projector), each by its
+``TRAINABLE_PATTERN``.  The encoders run apart only for a model that names
+its ``ENCODER_PARAM_KEYS`` and has ``_loss_from_tokens``.
 """
 
 from __future__ import annotations
@@ -60,11 +65,7 @@ class Preempted(RuntimeError):
 def refuse_unported(cfg: RunConfig) -> None:
     """Raise ``NotImplementedError``, naming the ROADMAP.md item, for a
     training configuration the port does not run."""
-    from mraudio_tpu_torch.models.factory import canonical_model_name
-
     tc = cfg.train
-    if canonical_model_name(cfg.model_name) == "VideoLLaMA":
-        raise NotImplementedError("training VideoLLaMA is not ported yet (ROADMAP.md A.6)")
     if tc.quant_frozen == "int8":
         raise NotImplementedError("train.quant_frozen='int8' is not ported yet "
                                   "(ROADMAP.md A.2: models/quant_tree.py)")
@@ -82,7 +83,7 @@ class Trainer:
     def __init__(self, cfg: RunConfig, model=None, train_dataset: MRDataset | None = None,
                  val_dataset: MRDataset | None = None, optimizer: str = "adamw",
                  frozen_bf16: bool = True, device="cuda"):
-        """``model``: an X-InstructBLIP module with its weights (default:
+        """``model``: a backbone module with its weights (default:
         seeded random weights and the checkpoints ``cfg`` names, on
         ``device``).  Its trainable leaves become f32 masters that need a
         gradient; with ``frozen_bf16`` every other float leaf is cast by
@@ -117,9 +118,10 @@ class Trainer:
         n_train = sum(p.numel() for p in self.trainable.values())
         logger.info("trainable params: %d / %d", n_train,
                     sum(p.numel() for p in params.values()))
-        enc_keys = getattr(model, "ENCODER_PARAM_KEYS", ())
-        self.split_encode = tc.split_encode_step and not any(
-            k.split("/")[0] in enc_keys for k in self.trainable)
+        enc_keys = getattr(model, "ENCODER_PARAM_KEYS", None)
+        self.split_encode = (tc.split_encode_step and enc_keys is not None
+                             and hasattr(model, "_loss_from_tokens")
+                             and not any(k.split("/")[0] in enc_keys for k in self.trainable))
 
         if train_dataset is None:
             train_dataset = MRDataset(cfg.data, annotation_path=cfg.data.train_annotation_file,
@@ -128,7 +130,7 @@ class Trainer:
             val_dataset = MRDataset(cfg.data, annotation_path=cfg.data.val_annotation_file,
                                     split="eval")
         durations = [a["duration"] for ds in (train_dataset, val_dataset) for a in ds.annotation]
-        if durations:
+        if hasattr(model, "prepare_text") and durations:
             from mraudio_tpu_torch.text.tokenizer import validate_time_budgets
 
             validate_time_budgets(model.llm_tokenizer, model.cfg, int(max(durations)) + 1)
@@ -329,7 +331,7 @@ class Trainer:
         themselves; with the saliency head, the HL metrics too."""
         from mraudio_tpu_torch.infer.evaluate import saliency_to_clip_grid
 
-        want_saliency = bool(self.model.cfg.saliency_head)
+        want_saliency = bool(getattr(self.model.cfg, "saliency_head", False))
         gt_by_qid = {a["qid"]: a for a in self.val_loader.dataset.annotation}
         results = []
         for batch in self.val_loader:

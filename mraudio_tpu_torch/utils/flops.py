@@ -1,5 +1,5 @@
-"""Analytic FLOP accounting for the inference pipeline and the LoRA train
-step, and the card's peak for MFU.
+"""Analytic FLOP accounting for the inference pipeline (both backbones)
+and the LoRA train step, and the card's peak for MFU.
 
 Counts matmul FLOPs (2 per multiply-accumulate) per pipeline stage from
 the configs, the same numbers as the JAX package's ``utils/flops.py``.
@@ -122,6 +122,47 @@ def train_step_flops(model_cfg, audio_cfg, n_frms: int, batch: int,
     lm_head = batch * 2 * seq_len * llm.hidden_size * llm.vocab_size * 3.0
     total = enc + llm_fwd * mult + lm_head
     return {"encoders": enc, "llm": llm_fwd * mult, "lm_head": lm_head, "total": total}
+
+
+def videollama_flops(cfg, audio_cfg, n_frms: int, batch: int,
+                     prefill_len: int, decode_tokens: int) -> dict:
+    """Per-batch FLOPs of the VideoLLaMA backbone's generate pipeline
+    (``models/videollama.py``), by stage: the folded ViT and BEATs, the
+    connector and the audio projector (two dense layers each), the LLM's
+    prefill (last-position lm_head) and decode.  No Q-Formers."""
+    vit, beats, llm = cfg.vit, cfg.beats, cfg.llm
+
+    p_tok = vit.num_patches + (1 if vit.use_class_token else 0)
+    f_embed = 2 * p_tok * (vit.patch_size ** 2 * 3) * vit.width
+    f_vit = batch * n_frms * (transformer_flops(p_tok, vit.width, vit.depth, vit.mlp_dim)
+                              + f_embed)
+
+    a_tok = ((audio_cfg.mel_frames_per_chunk // beats.patch_stride)
+             * (beats.num_mel_bins // beats.patch_stride))
+    f_beats = batch * n_frms * (
+        transformer_flops(a_tok, beats.width, beats.depth, beats.mlp_dim)
+        + 2 * a_tok * beats.patch_size ** 2 * beats.conv_dim)
+
+    # the pooled video tokens through the connector, one token per audio
+    # chunk through the projector: two dense layers each
+    v_tok = (n_frms // cfg.temporal_stride) * (vit.num_patches // (cfg.spatial_pool ** 2))
+    d = llm.hidden_size
+    f_conn = batch * 2 * (v_tok * (vit.width * d + d * d) + n_frms * (beats.width * d + d * d))
+
+    kv_w = llm.num_kv_heads * llm.head_dim
+    f_prefill = batch * transformer_flops(prefill_len, llm.hidden_size, llm.num_layers,
+                                          llm.intermediate_size, kv_len=prefill_len / 2,
+                                          kv_width=kv_w, n_mlp_mats=3)
+    f_prefill += batch * 2 * llm.hidden_size * llm.vocab_size
+    avg_ctx = prefill_len + decode_tokens / 2
+    f_decode = batch * decode_tokens * (
+        transformer_flops(1, llm.hidden_size, llm.num_layers, llm.intermediate_size,
+                          kv_len=avg_ctx, kv_width=kv_w, n_mlp_mats=3)
+        + 2 * llm.hidden_size * llm.vocab_size)
+
+    total = f_vit + f_beats + f_conn + f_prefill + f_decode
+    return {"vit": f_vit, "beats": f_beats, "connector": f_conn, "prefill": f_prefill,
+            "decode": f_decode, "total": total}
 
 
 def prefill_length(model_cfg, n_frms: int) -> int:

@@ -327,6 +327,12 @@ def test_cli_unported_flags_raise(flag, tmp_path, fabricated, monkeypatch):
         model = _run_cli_capturing_model(monkeypatch, [*argv, f"{name}={value}"])
         assert_took(model, _LOADS[name], paths)
         return
+    if flag == "--model=VideoLLaMA":
+        # ported (ROADMAP.md A.6): the CLI predicts with the second backbone
+        from mraudio_tpu_torch.models.videollama import VideoLLaMA
+
+        assert isinstance(_run_cli_capturing_model(monkeypatch, [*argv, flag]), VideoLLaMA)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md A."):
         cli_evaluate.main([*argv, flag])
 

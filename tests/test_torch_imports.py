@@ -63,3 +63,14 @@ def test_native_bindings_build_into_build_dir():
     assert "libmraudio_native.so" in src and "native/libmraudio_native.so" not in src
     assert pathlib.Path(nb._LIB_PATH).parent == ROOT / "build" / "native"
     assert pathlib.Path(nb._SOURCE) == ROOT / "native" / "mraudio_native.cc"
+
+
+def test_videollama_module_is_covered():
+    """The VideoLLaMA backbone is among the sources checked above and
+    imports nothing of the JAX package (its JAX counterpart,
+    ``mraudio_tpu/models/videollama.py``, is the reference)."""
+    path = ROOT / "mraudio_tpu_torch" / "models" / "videollama.py"
+    assert path in SOURCES
+    tree = ast.parse(path.read_text(), filename=str(path))
+    tops = {name.split(".")[0] for name in _imports(tree)}
+    assert "mraudio_tpu_torch" in tops and not tops & set(FORBIDDEN)

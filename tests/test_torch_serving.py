@@ -572,7 +572,9 @@ def test_cli_unported_flags_raise(ann_file, tmp_path, flag, fabricated, monkeypa
         assert torch.equal(got, trained.to(got.dtype))
         return
     if flag[0] not in ("--model-path", "--audio-encoder", "--params-store"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.\d"):
+        # VideoLLaMA is a known difference kept from the JAX package's serve CLI (C.3)
+        item = r"C\.3" if flag == ["--model", "VideoLLaMA"] else r"A\.\d"
+        with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md {item}"):
             _cli(ann_file, tmp_path / "x.jsonl", *flag)
         return
     value = {"--model-path": paths["llm"], "--audio-encoder": paths["beats"],
