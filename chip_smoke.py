@@ -1,7 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--out results.json]
-                          [--only kernels,models,evaluate,serve,converted,train,videollama]
+                          [--only kernels,models,evaluate,serve,converted,train,videollama,quant]
 
 Phases, each printing one JSON line with its seconds:
 
@@ -133,8 +133,34 @@ Phases, each printing one JSON line with its seconds:
     connector and audio projector leaves moved, no frozen leaf changed, 0
     launches.
 
+19. quant, the quantized formats and the single-chip memory levers (no
+    new kernel: the JAX package computes them in XLA): (a) ``quant_slice``,
+    the slice model at full width and depth with the int4 KV cache and
+    the ``scan_layers`` layout on the 3 clips (16 greedy tokens): 32 flash
+    and 224 GEMV launches per pass; the same weights through the stacked
+    names into a per-layer decoder give the same tokens bit for bit; the
+    int8 cache's first-step logits against the int4 cache's; one layer's
+    decode attention over both caches, timed; (b) ``quant_int4``, the
+    evaluate CLI at full width with a JSON config of int4 weights and the
+    int4 cache, ``--quant-encoders``, the default routes and grammar
+    decoding on 3 clips at batch 3: 0 launches, 0 invalid predictions, the
+    weight bytes by part and the peak memory; (c) ``quant_w8a8``,
+    ``int8_dot`` at full width in the default routes: 0 launches, each
+    row's greedy tokens alone equal to its tokens in the 3-row batch, one
+    layer's projections through W8A8, the XLA route and the GEMV; (d)
+    ``quant_serve``, the engine over the int4 cache with ``kv_keep`` 1784
+    in the 8-layer serving model: the offline decoder's tokens; (e)
+    ``single_chip``, the finetune CLI with ``--single-chip`` at full width
+    and depth (4 micro-steps at batch 2 in one encoder window, validation
+    on 1 clip): finite losses, the stacked LoRA B moved, no encoder leaf
+    on the card during a loss step, 0 launches, seconds per micro-step,
+    MFU, the loss steps' peak memory; (f) on the narrow model,
+    ``encoder_window=2`` with ``upload_overlap`` against the per-batch
+    split, bit for bit.
+
 ``--only`` runs the named groups of phases (kernels: 3; models: 4-9;
-evaluate: 10-11; serve: 12-15; converted: 16; train: 17; videollama: 18; spec_width: the probe of
+evaluate: 10-11; serve: 12-15; converted: 16; train: 17; videollama: 18; quant: 19;
+spec_width: the probe of
 the serving engine at ``spec_width`` 20 against 1, ROADMAP C.2, which a
 full run leaves out) after the build, for debugging; such a run prints
 no summary and no ``ok`` line.
@@ -2458,13 +2484,547 @@ def videollama21_av(dev, seed: int = 0) -> dict:
     return result
 
 
+# --------------------------------------------------------------------------
+# Phase 19: the quantized formats and the single-chip memory levers
+# --------------------------------------------------------------------------
+
+# first-step logits over the int4 cache against the int8 cache's, same
+# weights and inputs: int4 keeps 15 levels per head row (step absmax / 7)
+# where int8 keeps 255, so K and V carry about 10% rms error, which 32
+# layers of random weights carry into the logits at a comparable size; the
+# JAX package's own test holds the int4 cache to argmax agreement on half
+# the rows (tests/test_kv_int4.py:145)
+INT4_KV_LOGIT_REL_L2 = 0.5
+QUANT_TOKENS = 16       # greedy budget of the quant_slice and quant_w8a8 runs
+
+
+def _counted_generate(model, batch, max_new: int):
+    """One ``generate`` with ``max_new`` tokens, the launch counts read
+    around it: ``(tokens, stats, launches, seconds)``."""
+    stats = {}
+    set_launches(0)
+    with model_settings(model, max_new_tokens=max_new):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pending = model.generate_submit(batch=batch, stats=stats)
+        tokens = pending[0].cpu()
+        wall = time.perf_counter() - t
+    return tokens, stats, read_launches(), wall
+
+
+def decode_attention_int4_vs_int8(dev, b, h, s, d, gen) -> dict:
+    """One layer's greedy decode attention (``chunked_attention``'s one-pass
+    tile, one batch row at a time) over the int4 cache and the int8 cache
+    of the same keys and values, at the slice's cache length, timed with
+    CUDA events; each beside its byte bound."""
+    from mraudio_tpu_torch.infer.generate import MAX_SPEC_WIDTH
+    from mraudio_tpu_torch.models.llama import quantize_kv, quantize_kv4
+    from mraudio_tpu_torch.ops.attention import chunked_attention
+
+    kv = s + 64 + MAX_SPEC_WIDTH
+    k = torch.randn((b, kv, h, d), generator=gen, device=dev)
+    v = torch.randn((b, kv, h, d), generator=gen, device=dev)
+    q = torch.randn((b, 1, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    mask = torch.ones((b, kv), dtype=torch.int32, device=dev)
+    col = s + 10
+    out = {}
+    for name, quantize, per_value in (("int8", quantize_kv, 1.0), ("int4", quantize_kv4, 0.5)):
+        kq, ks = quantize(k)
+        vq, vs = quantize(v)
+        ks, vs = ks.transpose(1, 2).contiguous(), vs.transpose(1, 2).contiguous()
+        kw = dict(causal=True, k_scale=ks, v_scale=vs, scales_bhs=True, kv_bshd=True,
+                  q_bshd=True, q_offset=col, kv_packed=name == "int4")
+        got = chunked_attention(q, kq, vq, mask, **kw)
+        if not bool(torch.isfinite(got.float()).all()):
+            raise AssertionError(f"decode attention over the {name} cache: non-finite output")
+        ms = cuda_ms(lambda: chunked_attention(q, kq, vq, mask, **kw), iters=20)
+        nbytes = 2 * per_value * b * kv * h * d + 2 * 4.0 * b * h * kv + 4.0 * b * kv
+        flops = 4.0 * h * d * b * (col + 1)
+        bms, by = bound_ms(nbytes, flops, PEAK_BF16_TENSOR_FLOPS)
+        out[name] = dict(ms=ms, bound_ms=bms, bound_by=by)
+        del kq, vq
+    return dict(shape=dict(b=b, h=h, kv=kv, d=d), per="one layer, one greedy step", **out)
+
+
+def quant_slice(dev, seed: int = 0) -> dict:
+    """The slice model at full width and depth with the int4 cache and the
+    ``scan_layers`` layout, on the 3-clip QVH batch (greedy,
+    ``QUANT_TOKENS`` tokens): 32 flash and 224 GEMV launches per pass
+    (int8 weights); the same weights through the store's stacked names
+    into a per-layer model give the same tokens, bit for bit; the int8
+    cache's first-step logits against the int4 cache's within
+    ``INT4_KV_LOGIT_REL_L2``; the decode attention per layer over both
+    caches."""
+    from mraudio_tpu_torch.config import (DATASET_MAX_AUDIO_SECONDS, DATASET_N_FRMS,
+                                          AudioFrontendConfig, full_model_config,
+                                          slice_model_config)
+    from mraudio_tpu_torch.models.convert_jax import flax_params, load_jax_params_, nested
+    from mraudio_tpu_torch.models.llama import LlamaModel
+
+    base = slice_model_config(full_model_config())
+    cfg = base.replace(llm=base.llm.replace(kv_quant="int4", scan_layers=True))
+    audio_cfg = AudioFrontendConfig(max_audio_seconds=DATASET_MAX_AUDIO_SECONDS["QVH"])
+    model = build_model(cfg, audio_cfg, dev, seed)
+    seed_lora_b_(model, seed)
+    batch = qvh_batch(3, DATASET_N_FRMS["QVH"], cfg.vit.image_size,
+                      DATASET_MAX_AUDIO_SECONDS["QVH"], audio_cfg.sampling_rate, seed=seed + 1)
+    layers, v = cfg.llm.num_layers, cfg.llm.vocab_size
+    torch.cuda.reset_peak_memory_stats()
+    scan_tokens, stats, launches, wall = _counted_generate(model, batch, QUANT_TOKENS)
+    passes = stats["decode_steps"]
+    want = {"flash_attention": layers, "decode_gemv": gemv_launches(cfg.llm, passes)}
+    if launches != want:
+        raise AssertionError(f"quant_slice: launches {launches} for {passes} passes, want {want}")
+    peak = torch.cuda.max_memory_allocated()
+    scan_logits = stats["prefill_logits"].float().cpu()
+    if not bool(torch.isfinite(scan_logits[:, :v]).all()):
+        raise AssertionError("quant_slice: non-finite prefill logits")
+
+    # the decoder in the per-layer layout from the stacked names the store
+    # and the checkpoints carry, in place of the scan-layout decoder
+    t = time.perf_counter()
+    stacked = {k: v for k, v in flax_params(model).items() if k.startswith("llm/")}
+    if not any(k.startswith("llm/layers/") for k in stacked) or any(
+            k.startswith("llm/layer_") for k in stacked):
+        raise AssertionError("quant_slice: flax_params did not stack the decoder layers")
+    with torch.device(dev):
+        loop_llm = LlamaModel(cfg.llm.replace(scan_layers=False), cfg.lora)
+    load_jax_params_(loop_llm, nested(stacked)["llm"])
+    model.llm = loop_llm
+    del stacked
+    gc.collect()
+    torch.cuda.empty_cache()
+    layout_s = time.perf_counter() - t
+    loop_tokens, loop_stats, loop_launches, _ = _counted_generate(model, batch, QUANT_TOKENS)
+    if not torch.equal(loop_tokens, scan_tokens) or loop_launches != launches:
+        raise AssertionError(f"quant_slice: the per-layer layout gives other tokens or launches "
+                             f"({loop_launches})")
+
+    with llm_settings(model, kv_quant="int8"):
+        int8_tokens, int8_stats, _, _ = _counted_generate(model, batch, 1)
+    int8_logits = int8_stats["prefill_logits"].float().cpu()
+    rel = float((scan_logits[:, :v] - int8_logits[:, :v]).norm() / int8_logits[:, :v].norm())
+    argmax_agree = float((scan_logits[:, :v].argmax(-1) == int8_logits[:, :v].argmax(-1))
+                         .float().mean())
+    result = dict(layers=layers, kv_quant="int4", scan_layers=True, prefix_len=stats["prefix_len"],
+                  decode_steps=passes, launches=launches,
+                  launches_per_pass=dict(flash_attention=launches["flash_attention"],
+                                         decode_gemv=launches["decode_gemv"] / passes),
+                  encode_s=stats["encode_s"], prefill_s=stats["prefill_s"],
+                  decode_s=stats["decode_s"], wall_s=wall, clips_per_s=3 / wall,
+                  peak_mem_bytes=peak, layout_round_trip_s=layout_s,
+                  loop_layout_tokens_identical=True,
+                  first_step_logits_vs_int8_cache=dict(rel_l2=rel, limit=INT4_KV_LOGIT_REL_L2,
+                                                       argmax_agreement=argmax_agree),
+                  texts=model.generate_finalize((scan_tokens, None)))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    result["decode_attention"] = decode_attention_int4_vs_int8(
+        dev, 3, 32, stats["prefix_len"], 128, gen)
+    emit({"phase": "quant_slice_readings", **result})
+    if not rel <= INT4_KV_LOGIT_REL_L2:
+        raise AssertionError(f"quant_slice: first-step logits over the int4 cache at rel L2 {rel} "
+                             f"of the int8 cache's (limit {INT4_KV_LOGIT_REL_L2})")
+    return result
+
+
+def quant_evaluate() -> dict:
+    """The evaluate CLI at full width and depth with the bench knobs
+    (``quantization: int4``, ``kv_quant: int4``) in a JSON ``--config``,
+    ``--quant-encoders``, the deployed default routes and grammar decoding
+    (``spec_width`` 4, so that every prediction must parse), on 3 synthetic
+    QVH clips at batch 3: 0 launches, 0 invalid predictions; the model's
+    weight bytes by part and the peak memory."""
+    import mraudio_tpu_torch.infer.evaluate as infer_evaluate
+    from mraudio_tpu_torch.cli import evaluate as cli
+    from mraudio_tpu_torch.config import DataConfig, RunConfig, full_model_config
+    from mraudio_tpu_torch.eval.mr_eval import eval_submission
+
+    root = Path(__file__).resolve().parent / "build" / "smoke_quant_evaluate"
+    root.mkdir(parents=True, exist_ok=True)
+    anns = [{"vid": f"v{i}", "qid": i, "query": QUERIES[i % 3], "duration": 150,
+             "relevant_windows": [[10.0 + 24 * i, 34.0 + 24 * i]]} for i in range(3)]
+    gt, out, config = root / "annotations.jsonl", root / "predictions.jsonl", root / "run.json"
+    gt.write_text("".join(json.dumps(a) + "\n" for a in anns))
+    full = full_model_config()
+    config.write_text(json.dumps(RunConfig(
+        model=full.replace(llm=full.llm.replace(quantization="int4", kv_quant="int4"),
+                           constrained_decoding=True, spec_width=4),
+        data=DataConfig.for_dataset("QVH")).to_dict()))
+    seen = {}
+    real = infer_evaluate.run_inference
+
+    def capture(cfg, model=None, **kw):
+        result = real(cfg, model=model, **kw)
+        enc = set(model.ENCODER_PARAM_KEYS)
+        parts = {}
+        for name, p in model.named_parameters():
+            part = "llm" if name.startswith("llm.") else ("encoders" if name.split(".")[0] in enc
+                                                          else "other")
+            parts[part] = parts.get(part, 0) + p.numel() * p.element_size()
+        seen.update(weight_bytes=parts, int8_kernels=sum(
+            n.endswith("kernel.original0") for n, _ in model.named_parameters()))
+        return result
+
+    infer_evaluate.run_inference = capture
+    torch.cuda.reset_peak_memory_stats()
+    set_launches(0)
+    t = time.perf_counter()
+    try:
+        result = cli.main(["--annotation-file", str(gt), "--output-file", str(out),
+                           "--config", str(config), "--video-source", "synthetic",
+                           "--batch-size", "3", "--quant-encoders"])
+    finally:
+        infer_evaluate.run_inference = real
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_launches()
+    records = result["records"]
+    metrics = eval_submission(records, anns, verbose=False)
+    readings = dict(records=len(records), launches=launches,
+                    clips_per_sec=result["clips_per_sec"], wall_s_with_model_build=wall,
+                    batches=result["batches"], peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                    brief=dict(metrics["brief"]), raw_out=[r["raw_out"] for r in records], **seen)
+    emit({"phase": "quant_evaluate_readings", **readings})
+    if launches != {"flash_attention": 0, "decode_gemv": 0}:
+        raise AssertionError(f"quant_evaluate launched kernels: {launches}")
+    if [r["qid"] for r in records] != list(range(3)) or \
+            metrics["brief"]["MR-full-invalid_pred_num"] != 0:
+        raise AssertionError(f"quant_evaluate: {len(records)} records, {metrics['brief']}")
+    if not seen.get("int8_kernels"):
+        raise AssertionError("quant_evaluate: no encoder kernel was stored int8")
+    return readings
+
+
+def projection_layer_ms(dev, b, gen, llm_cfg, cold_bytes=160e6) -> dict:
+    """One decoder layer's seven projections (q, k, v, o, gate, up, down)
+    through ``LlamaLinear`` under ``llm_cfg`` (int8 weights, or int4 with
+    ``quantization="int4"``) at ``b`` rows, device time by CUDA-graph
+    replay with the weights rotated past the L2."""
+    from mraudio_tpu_torch.models.convert_jax import init_random_
+    from mraudio_tpu_torch.models.llama import LlamaLinear
+
+    per_shape = {}
+    for kdim, n in ((4096, 4096), (4096, 11008), (11008, 4096)):
+        copies = max(1, int(np.ceil(cold_bytes / (kdim * n))))
+        x, ws, scale = _gemv_inputs(b, kdim, n, True, gen, copies)
+        with torch.device(dev):
+            lins = [LlamaLinear(kdim, n, llm_cfg) for _ in range(copies)]
+        for i, (lin, w) in enumerate(zip(lins, ws)):
+            if lin.int4:
+                init_random_(lin, seed=i)
+            else:
+                lin.w_int8.data, lin.scale.data = w, scale
+        it = [0]
+
+        def call(lins=lins, x=x, it=it):
+            it[0] = (it[0] + 1) % len(lins)
+            return lins[it[0]](x)
+
+        per_shape[f"{kdim}x{n}"] = graph_ms(call)
+    return dict(ms_by_shape=per_shape, layer_ms=4 * per_shape["4096x4096"]
+                + 2 * per_shape["4096x11008"] + per_shape["11008x4096"])
+
+
+def quant_w8a8(dev, seed: int = 0) -> dict:
+    """The model at full width and depth with ``int8_dot`` (W8A8) in the
+    default routes on the 3-clip QVH batch (``QUANT_TOKENS`` tokens): 0
+    launches (W8A8 precedes the GEMV route), finite logits; from the
+    batch's own prefix, each row's greedy tokens alone equal its tokens in
+    the 3-row batch, bit for bit; one layer's projections at 3 rows
+    through W8A8, the XLA route and the GEMV kernel."""
+    from mraudio_tpu_torch.config import (DATASET_MAX_AUDIO_SECONDS, DATASET_N_FRMS,
+                                          AudioFrontendConfig, full_model_config)
+    from mraudio_tpu_torch.infer.generate import greedy_generate
+
+    full = full_model_config()
+    cfg = full.replace(llm=full.llm.replace(int8_dot=True))
+    audio_cfg = AudioFrontendConfig(max_audio_seconds=DATASET_MAX_AUDIO_SECONDS["QVH"])
+    model = build_model(cfg, audio_cfg, dev, seed)
+    seed_lora_b_(model, seed)
+    batch = qvh_batch(3, DATASET_N_FRMS["QVH"], cfg.vit.image_size,
+                      DATASET_MAX_AUDIO_SECONDS["QVH"], audio_cfg.sampling_rate, seed=seed + 1)
+    torch.cuda.reset_peak_memory_stats()
+    tokens, stats, launches, wall = _counted_generate(model, batch, QUANT_TOKENS)
+    peak = torch.cuda.max_memory_allocated()
+    if launches != {"flash_attention": 0, "decode_gemv": 0}:
+        raise AssertionError(f"quant_w8a8 launched kernels: {launches}")
+    if not bool(torch.isfinite(stats["prefill_logits"][:, :cfg.llm.vocab_size]).all()):
+        raise AssertionError("quant_w8a8: non-finite prefill logits")
+    eos = model.llm_tokenizer.eos_token_id
+    with torch.inference_mode():
+        text = model.prepare_text(batch.text_input, batch.timestamps, batch.duration)
+        embeds, mask = model.prefix_embeds(*model.device_inputs(batch), text,
+                                           batch.timestamps.shape[1])
+        t = time.perf_counter()
+        rows = greedy_generate(model.llm, embeds, mask, QUANT_TOKENS, eos).cpu()
+        alone = [greedy_generate(model.llm, embeds[i:i + 1], mask[i:i + 1], QUANT_TOKENS,
+                                 eos).cpu() for i in range(3)]
+        rows_s = time.perf_counter() - t
+    if not all(torch.equal(alone[i][0], rows[i]) for i in range(3)):
+        raise AssertionError("quant_w8a8: a row alone gives other tokens than in the batch")
+    del model, embeds
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    routes = {name: projection_layer_ms(dev, 3, gen, full.llm.replace(**kw))
+              for name, kw in (("w8a8", dict(int8_dot=True)), ("xla", {}),
+                               ("gemv", dict(decode_gemv="pallas")),
+                               ("int4", dict(quantization="int4")))}
+    # torch._int_mm alone at the down projection's shape (32 padded rows),
+    # the weight row-major as the model stores it and column-major
+    x8 = torch.randint(-127, 128, (32, 11008), generator=gen, device=dev, dtype=torch.int8)
+    w8 = torch.randint(-127, 128, (11008, 4096), generator=gen, device=dev, dtype=torch.int8)
+    w8_col = w8.t().contiguous().t()
+    if not torch.equal(torch._int_mm(x8, w8), torch._int_mm(x8, w8_col)):
+        raise AssertionError("quant_w8a8: torch._int_mm differs between weight layouts")
+    int_mm_ms = dict(row_major=graph_ms(lambda: torch._int_mm(x8, w8)),
+                     column_major=graph_ms(lambda: torch._int_mm(x8, w8_col)))
+    result = dict(decode_steps=stats["decode_steps"], encode_s=stats["encode_s"],
+                  prefill_s=stats["prefill_s"], decode_s=stats["decode_s"], wall_s=wall,
+                  clips_per_s=3 / wall, peak_mem_bytes=peak, launches=launches,
+                  rows_alone_bit_identical=True, rows_s=rows_s,
+                  int_mm_11008x4096_m32_l2_warm_ms=int_mm_ms,
+                  projection_layer_ms_b3={k: r["layer_ms"] for k, r in routes.items()},
+                  projection_ms_by_shape={k: r["ms_by_shape"] for k, r in routes.items()})
+    emit({"phase": "quant_w8a8_readings", **result})
+    return result
+
+
+def quant_serve(dev) -> dict:
+    """The engine over the int4 cache under SnapKV ``kv_keep`` (1784, the
+    serve profile's), in the 8-layer serving model: 4 slots, admissions of
+    2, 2 steps per dispatch; each request's tokens equal the offline
+    greedy decoder's at batch 3 under the same settings; 0 launches."""
+    from mraudio_tpu_torch.infer.generate import greedy_generate
+    from mraudio_tpu_torch.infer.serving import ContinuousBatcher
+
+    model, requests = serve_model(dev)
+    llm, eos = model.llm, model.llm_tokenizer.eos_token_id
+    max_new = model.cfg.max_new_tokens
+    reqs = [r for r, _ in requests]
+    s = reqs[0].prefix_embeds.shape[0]
+    set_launches(0)
+    with llm_settings(model, kv_quant="int4", kv_keep=1784):
+        t = time.perf_counter()
+        offline = greedy_generate(
+            llm, torch.stack([r.prefix_embeds for r in reqs[:3]]),
+            torch.from_numpy(np.stack([r.prefix_mask for r in reqs[:3]])).to(model.device),
+            max_new, eos).cpu().numpy()
+        offline_s = time.perf_counter() - t
+        engine = ContinuousBatcher(llm, s, max_new, eos, max_slots=4, max_prefill_batch=2,
+                                   steps_per_dispatch=2)
+        if engine.cache[0]["k"].dtype != torch.uint8:
+            raise AssertionError("quant_serve: the engine's cache is not int4")
+        tokens, dispatches, secs = drive_engine(engine, reqs[:3])
+        engine.close()
+    same_tokens(tokens, offline, eos, "engine over the int4 cache with kv_keep vs offline")
+    if read_launches() != {"flash_attention": 0, "decode_gemv": 0}:
+        raise AssertionError(f"quant_serve launched kernels: {read_launches()}")
+    result = dict(layers=llm.cfg.num_layers, prefix_len=s, kv_keep=1784, kv_quant="int4",
+                  tokens_identical=True, offline_greedy_s=offline_s,
+                  engine_dispatches=dispatches, engine_s=secs)
+    emit({"phase": "quant_serve_readings", **result})
+    return result
+
+
+_SINGLE_CHIP_RUNNER = r"""
+import json, sys, time
+import torch
+import chip_smoke
+from mraudio_tpu_torch.cli import finetune
+from mraudio_tpu_torch.train import trainer as trainer_mod
+
+out = {"step_s": [], "window_s": [], "upload_s": [], "step_peak_bytes": [], "seq_len": None}
+T = trainer_mod.Trainer
+real_loss_step, real_upload, real_inputs = T._loss_step, T._encoders_to_device, T._step_inputs
+
+def timed(fn, key):
+    def wrap(self, *a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn(self, *a, **kw)
+        torch.cuda.synchronize()
+        out[key].append(time.perf_counter() - t)
+        return r
+    return wrap
+
+def loss_step(self, modal, arrays, key):
+    torch.cuda.reset_peak_memory_stats()
+    loss = timed(real_loss_step, "step_s")(self, modal, arrays, key)
+    out["step_peak_bytes"].append(torch.cuda.max_memory_allocated())
+    out.setdefault("encoders_on_device_in_steps", False)
+    out["encoders_on_device_in_steps"] |= self.encoders_on_device()
+    return loss
+
+def step_inputs(self, batch, step):
+    if out["seq_len"] is None:
+        m, n = self.model, batch.timestamps.shape[1]
+        text = m.prepare_text(batch.text_input, batch.timestamps, batch.duration,
+                              text_output=batch.text_output)
+        out["seq_len"] = int(m.prefix_mask_host(text, n).shape[1] - text.prompt_mask.shape[1]
+                             + text.concat_ids.shape[1])
+        out["n_frms"] = int(n)
+        out["encoder_bytes"] = self._enc_nbytes
+    return real_inputs(self, batch, step)
+
+T._loss_step = loss_step
+T._encoders_to_device = timed(real_upload, "upload_s")
+T._step_inputs = step_inputs
+T._train_epoch_windowed = timed(T._train_epoch_windowed, "window_s")
+chip_smoke.set_launches(0)
+t = time.perf_counter()
+summary = finetune.main(sys.argv[1:])
+torch.cuda.synchronize()
+out["wall_s"] = time.perf_counter() - t
+out["launches"] = chip_smoke.read_launches()
+out["summary"] = {k: v for k, v in summary.items() if k != "results"}
+print("SINGLE_CHIP " + json.dumps(out), flush=True)
+"""
+
+
+def single_chip_cli() -> dict:
+    """The finetune CLI with ``--single-chip`` in a process of its own at
+    full width and depth (remat, ``scan_layers``, int8 frozen encoders,
+    the split encode step, ``encoder_window`` 12): 8 synthetic QVH clips
+    at batch 2 (4 micro-steps in one window), validation on 1 clip.  Every
+    loss finite, the checkpoint's LoRA leaves stacked and moved, no encoder
+    leaf on the device during a loss step, 0 launches; seconds per micro-
+    step (the window's wall over its steps, and each loss step alone),
+    MFU, the loss steps' peak memory."""
+    from mraudio_tpu_torch.config import (DATASET_MAX_AUDIO_SECONDS, AudioFrontendConfig,
+                                          full_model_config)
+    from mraudio_tpu_torch.train.checkpoint import load_checkpoint
+    from mraudio_tpu_torch.utils.flops import peak_flops_for, train_step_flops
+
+    root = Path(__file__).resolve().parent / "build" / "smoke_single_chip"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    train_ann, val_ann, out = root / "train.jsonl", root / "val.jsonl", root / "out"
+    train_ann.write_text("".join(json.dumps(a) + "\n" for a in train_annotations(TRAIN_CLIPS)))
+    val_ann.write_text("".join(json.dumps(a) + "\n" for a in train_annotations(1, TRAIN_CLIPS)))
+    args = ["--model-size", "full", "--single-chip", "--video-source", "synthetic",
+            "--batch-size", str(TRAIN_BATCH), "--max-epoch", "1", "--save-freq", "1",
+            "--train-annotation-file", str(train_ann), "--val-annotation-file", str(val_ann),
+            "--output-dir", str(out)]
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _SINGLE_CHIP_RUNNER, *args],
+                          cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                          timeout=900)
+    wall = time.perf_counter() - t
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("SINGLE_CHIP ")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"finetune --single-chip failed ({proc.returncode}): "
+                             f"{proc.stderr[-3000:]}")
+    run = json.loads(lines[-1][len("SINGLE_CHIP "):])
+    events = [json.loads(ln) for ln in (out / "train.jsonl").read_text().splitlines()]
+    losses = [e["loss"] for e in events if e["event"] == "train_step"]
+    windows = [e for e in events if e["event"] == "window"]
+    steps = TRAIN_CLIPS // TRAIN_BATCH
+    e2e_s = run["window_s"][0] / steps
+    audio_cfg = AudioFrontendConfig(max_audio_seconds=DATASET_MAX_AUDIO_SECONDS["QVH"])
+    flops = train_step_flops(full_model_config(), audio_cfg, run["n_frms"], TRAIN_BATCH,
+                             run["seq_len"], grad_checkpoint=True)
+    peak = peak_flops_for(torch.cuda.get_device_name(0))
+    trained = load_checkpoint(str(out / "checkpoint_0"))["model"]
+    lora_b = {k: v for k, v in trained.items() if k.endswith("lora_b")}
+    result = dict(subprocess_wall_s=wall, cli_wall_s=run["wall_s"], losses=losses,
+                  windows=windows, window_s=run["window_s"], upload_s=run["upload_s"],
+                  loss_step_s=run["step_s"], s_per_micro_step_e2e=e2e_s,
+                  s_per_loss_step_median_2_4=float(np.median(run["step_s"][1:4])),
+                  train_clips_per_s=TRAIN_BATCH / e2e_s, train_step_flops=flops,
+                  train_mfu=flops["total"] / (e2e_s * peak), seq_len=run["seq_len"],
+                  encoder_packed_bytes=run["encoder_bytes"],
+                  loss_step_peak_mem_bytes=max(run["step_peak_bytes"]),
+                  encoders_on_device_in_loss_steps=run["encoders_on_device_in_steps"],
+                  launches=run["launches"], summary=run["summary"],
+                  stacked_lora_leaves=sorted(k for k in lora_b)[:2],
+                  lora_b_moved=sum(bool(v.abs().amax() > 0) for v in lora_b.values()))
+    emit({"phase": "single_chip_readings", **result})
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"single_chip: losses {losses}")
+    if [w["batches"] for w in windows] != [steps] or any(
+            w["encoders_on_device_during_steps"] for w in windows) or \
+            run["encoders_on_device_in_steps"]:
+        raise AssertionError(f"single_chip: windows {windows}")
+    if run["launches"] != {"flash_attention": 0, "decode_gemv": 0}:
+        raise AssertionError(f"single_chip launched kernels: {run['launches']}")
+    layers = full_model_config().llm.num_layers
+    if len(lora_b) != 7 or any(v.shape[0] != layers or not bool((v.abs().amax(dim=(1, 2)) > 0)
+                                                                  .all()) for v in lora_b.values()):
+        raise AssertionError(f"single_chip: stacked LoRA B leaves {sorted(lora_b)}")
+    shutil.rmtree(root, ignore_errors=True)
+    return result
+
+
+def window_identities(dev) -> dict:
+    """On the narrow model of the training identities (2 decoder layers, 2
+    ViT blocks, 8 frames): one epoch of 4 micro-steps at batch 1 with
+    ``encoder_window=2`` and ``upload_overlap`` gives the per-batch split
+    run's losses and trained leaves, bit for bit, with the second window's
+    upload staged during the first window's loss steps."""
+    from mraudio_tpu_torch.infer.evaluate import build_model as build_trained
+    from mraudio_tpu_torch.train import trainer as trainer_mod
+
+    root = Path(__file__).resolve().parent / "build" / "smoke_window_id"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    train_ann, val_ann = root / "train.jsonl", root / "val.jsonl"
+    train_ann.write_text("".join(json.dumps(a) + "\n" for a in train_annotations(4)))
+    val_ann.write_text("".join(json.dumps(a) + "\n" for a in train_annotations(1, 4)))
+    runs = {}
+    model = initial = None
+    for name, train in (("split", {}), ("window", dict(encoder_window=2, upload_overlap=True))):
+        cfg = identities_config(batch_size=1, max_epoch=1, num_workers=1,
+                                output_dir=str(root / name), **train)
+        cfg = cfg.replace(data=cfg.data.replace(train_annotation_file=str(train_ann),
+                                                val_annotation_file=str(val_ann)))
+        if model is None:
+            model = build_trained(cfg, dev)
+            initial = {n: p.detach().clone() for n, p in model.named_parameters()
+                       if "lora" in n}
+        with torch.no_grad():
+            params = dict(model.named_parameters())
+            for n, p in initial.items():
+                params[n].data = p.clone()
+        trainer = trainer_mod.Trainer(cfg, model=model, device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer.train_epoch(0)
+        torch.cuda.synchronize()
+        events = [json.loads(ln) for ln in (root / name / "train.jsonl").read_text().splitlines()]
+        runs[name] = dict(losses=[e["loss"] for e in events if e["event"] == "train_step"],
+                          windows=[e for e in events if e["event"] == "window"],
+                          leaves={k: p.detach().clone() for k, p in trainer.trainable.items()},
+                          seconds=time.perf_counter() - t)
+        trainer._restore_sigterm()
+    split, window = runs["split"], runs["window"]
+    staged = [w["staged_upload"] for w in window["windows"]]
+    result = dict(losses=window["losses"], windows=window["windows"],
+                  staged_path_ran=any(staged),
+                  run_seconds=dict(split=split["seconds"], window=window["seconds"]))
+    emit({"phase": "window_identities_readings", **result})
+    if window["losses"] != split["losses"] or len(split["losses"]) != 4:
+        raise AssertionError(f"window identities: losses {window['losses']} vs {split['losses']}")
+    if sorted(window["leaves"]) != sorted(split["leaves"]) or not all(
+            torch.equal(window["leaves"][k], split["leaves"][k]) for k in split["leaves"]):
+        raise AssertionError("window identities: trained leaves differ from the split run's")
+    if [w["batches"] for w in window["windows"]] != [2, 2] or any(
+            w["encoders_on_device_during_steps"] for w in window["windows"]):
+        raise AssertionError(f"window identities: windows {window['windows']}")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(result, bit_identical=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="also write every phase's result to this JSON file")
     ap.add_argument("--only", default="",
                     help="comma-separated phases to run (kernels, models, evaluate, serve, "
-                         "converted, train, videollama, spec_width); a partial run prints no "
-                         "summary and no ok line")
+                         "converted, train, videollama, quant, spec_width); a partial run "
+                         "prints no summary and no ok line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2697,6 +3257,21 @@ def main() -> int:
         results["vl_finetune"] = finetune_cli("VideoLLaMA")
         emit({"phase": "videollama_finetune", **results["vl_finetune"],
               "seconds": time.perf_counter() - t})
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    if on("quant"):
+        for key, phase, fn in (("q_slice", "quant_slice", lambda: quant_slice(dev)),
+                               ("q_evaluate", "quant_int4", quant_evaluate),
+                               ("q_w8a8", "quant_w8a8", lambda: quant_w8a8(dev)),
+                               ("q_serve", "quant_serve", lambda: quant_serve(dev)),
+                               ("single_chip", "single_chip", single_chip_cli),
+                               ("window_id", "window_identities", lambda: window_identities(dev))):
+            t = time.perf_counter()
+            results[key] = fn()
+            emit({"phase": phase, "seconds": time.perf_counter() - t})   # readings above
+            gc.collect()
+            torch.cuda.empty_cache()
 
     if args.out:
         with open(args.out, "w") as f:
@@ -2729,7 +3304,12 @@ def main() -> int:
                                "videollama_slice_lookup_4":
                                    results["vl_slice"]["lookup_launches"][name],
                                "videollama21_av_slice": results["vl_av21"]["launches"][name],
-                               "videollama_train": results["vl_finetune"]["launches"][name]}
+                               "videollama_train": results["vl_finetune"]["launches"][name],
+                               "quant_slice": results["q_slice"]["launches"][name],
+                               "quant_int4_evaluate": results["q_evaluate"]["launches"][name],
+                               "quant_w8a8": results["q_w8a8"]["launches"][name],
+                               "quant_serve": 0, "single_chip_train":
+                                   results["single_chip"]["launches"][name]}
                         for name in ("flash_attention", "decode_gemv")}
     vl = results["vl_kernels"]
 

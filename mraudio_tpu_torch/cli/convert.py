@@ -70,15 +70,10 @@ def save_param_store(path: str, model, meta: dict | None = None) -> str:
 def load_param_store(path: str) -> dict:
     """The tree a store holds, as nested dicts of host tensors (memory-
     mapped from the file)."""
-    flat = torch.load(os.path.abspath(path), map_location="cpu", weights_only=True, mmap=True)
-    tree: dict = {}
-    for name, t in flat.items():
-        *scopes, leaf = name.split("/")
-        node = tree
-        for s in scopes:
-            node = node.setdefault(s, {})
-        node[leaf] = t
-    return tree
+    from mraudio_tpu_torch.models.convert_jax import nested
+
+    return nested(torch.load(os.path.abspath(path), map_location="cpu", weights_only=True,
+                             mmap=True))
 
 
 def load_store_meta(path: str) -> dict:

@@ -18,9 +18,13 @@ VideoLLaMA`` runs the second backbone (``models/videollama.py``) from the
 same size knobs; its ``--model-path`` is the merged VideoLLaMA2-AV
 checkpoint.  ``--fast`` applies
 ``apply_fast_preset`` (temporal-residual ViT, yuv420 wire, grammar-
-constrained decoding with ``spec_width=4``).  Flags whose machinery is
-not ported raise ``NotImplementedError`` naming the ROADMAP.md item that
-brings it, and so does a ``--config`` that names a tokenizer.
+constrained decoding with ``spec_width=4``).  ``--quant-encoders`` stores
+the frozen encoders' large kernels int8 (``models/quant_tree.py``); the
+int4 weights and cache, W8A8, ``scan_layers`` and ``mlp_seq_chunk`` come
+from a ``--config``'s ``model.llm`` (``quantization: int4``, ``kv_quant:
+int4``, ``int8_dot``, ...).  Flags whose machinery is not ported raise
+``NotImplementedError`` naming the ROADMAP.md item that brings it, and
+so does a ``--config`` that names a tokenizer.
 """
 
 from __future__ import annotations
@@ -30,7 +34,6 @@ import logging
 
 # flag → the ROADMAP.md item that ports its machinery
 _UNPORTED = {
-    "quant_encoders": "A.2: models/quant_tree.py",
     "seq_shard": "A.7: parallelism",
 }
 
@@ -113,7 +116,8 @@ def main(argv=None) -> dict:
                         help="param store from mraudio_tpu_torch.cli.convert (skips the "
                              "init and the conversion at launch)")
     parser.add_argument("--quant-encoders", action="store_true",
-                        help="int8-store the frozen encoder weights")
+                        help="store the frozen encoders' large kernels int8, dequantized "
+                             "where read (an approximation: the reference keeps them fp16)")
     parser.add_argument("--seq-shard", action="store_true",
                         help="sequence parallelism for the prefill")
     parser.add_argument("--fast", action="store_true",
@@ -131,6 +135,8 @@ def main(argv=None) -> dict:
 
     logging.basicConfig(level=logging.INFO)
     cfg = build_config(args)
+    if args.quant_encoders:
+        cfg = cfg.replace(quant_encoders=True)
     if args.fast:
         from mraudio_tpu_torch.config import apply_fast_preset
 

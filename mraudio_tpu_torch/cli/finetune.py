@@ -18,9 +18,15 @@ encoders run apart from the loss step); ``tiny`` the tiny presets;
 (each with a ``.meta.json`` sidecar) and ``train.jsonl`` to the output
 directory; ``--resume`` continues from a checkpoint (mid-epoch from
 ``checkpoint_preempt``).  ``--model VideoLLaMA`` trains the second
-backbone's LoRA adapters, connector and audio projector.  Flags whose
-machinery is not ported raise
-``NotImplementedError`` naming the ROADMAP.md item that brings it.
+backbone's LoRA adapters, connector and audio projector.
+``--quant-frozen int8`` stores the frozen kernels int8; ``--single-chip``
+applies the JAX package's single-chip memory stack as it sets it
+(``mraudio_tpu/cli/finetune.py:141-160``): ViT and block remat,
+``scan_layers``, ``attention_unroll_train`` (accepted, no effect here),
+``quant_frozen="int8"``, the split encode step and
+``encoder_window=max(train.encoder_window, 12)``.  Flags whose machinery
+is not ported raise ``NotImplementedError`` naming the ROADMAP.md item
+that brings it.
 """
 
 from __future__ import annotations
@@ -30,7 +36,6 @@ import logging
 
 # flag → the ROADMAP.md item that ports its machinery
 _UNPORTED = {
-    "single_chip": "A.2 and A.11: quant_frozen int8, scan_layers, encoder_window",
     "seq_shard": "A.7: parallelism",
     "distributed": "A.7: parallelism",
 }
@@ -72,6 +77,20 @@ def build_config(args):
     )
 
 
+def apply_single_chip(cfg):
+    """``--single-chip``: the JAX package's single-chip memory stack, field
+    for field.  ``attention_unroll_train`` unrolls XLA's tile loop there
+    and changes nothing here (the port's tile loop is a Python loop)."""
+    return cfg.replace(
+        model=cfg.model.replace(
+            vit=cfg.model.vit.replace(grad_checkpoint=True),
+            llm=cfg.model.llm.replace(grad_checkpoint=True, scan_layers=True,
+                                      attention_unroll_train=True)),
+        train=cfg.train.replace(quant_frozen="int8", split_encode_step=True,
+                                encoder_window=max(cfg.train.encoder_window, 12)),
+    )
+
+
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description="mraudio_tpu_torch finetuning")
     parser.add_argument("--model", default="X-InstructBLIP")
@@ -95,14 +114,18 @@ def main(argv=None) -> dict:
     parser.add_argument("--model-size", default="full", choices=["full", "tiny"])
     parser.add_argument("--resume", default="", help="checkpoint to resume from")
     parser.add_argument("--quant-frozen", default="", choices=["", "none", "int8"],
-                        help="store the frozen weights int8 (not ported: ROADMAP.md A.2)")
+                        help="store the frozen kernels int8, dequantized where read "
+                             "(models/quant_tree.py)")
     parser.add_argument("--optimizer", default="adamw", choices=["adamw", "adam"],
                         help="'adamw' = the reference's intended optimizer; 'adam' its live "
                              "plain-Adam override")
     parser.add_argument("--params-store", default="",
                         help="param store from mraudio_tpu_torch.cli.convert")
     parser.add_argument("--single-chip", action="store_true",
-                        help="the JAX package's one-16 GB-chip memory stack (not ported)")
+                        help="the JAX package's single-chip memory stack: remat, scan_layers, "
+                             "quant_frozen int8, the split encode step and an encoder window of "
+                             "at least 12 batches (its attention_unroll_train is accepted and "
+                             "has no effect here)")
     parser.add_argument("--seq-shard", action="store_true",
                         help="sequence parallelism on a model mesh (not ported)")
     parser.add_argument("--distributed", action="store_true",
@@ -119,6 +142,8 @@ def main(argv=None) -> dict:
 
     logging.basicConfig(level=logging.INFO)
     cfg = build_config(args)
+    if args.single_chip:
+        cfg = apply_single_chip(cfg)
 
     from mraudio_tpu_torch.cli.convert import resolve_params
     from mraudio_tpu_torch.models.factory import build_model

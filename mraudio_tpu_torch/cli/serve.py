@@ -16,9 +16,12 @@ defaults to ``cuda`` (asking for it without a card raises); weights are
 random from ``train.seed`` with the checkpoints the config,
 ``--model-path`` and ``--audio-encoder`` name converted over them, or a
 ``--params-store`` of ``cli/convert.py``; ``--checkpoint`` overlays a
-trained checkpoint of ``cli/finetune.py``.  Flags whose machinery is not
-ported raise ``NotImplementedError`` naming the ROADMAP.md item that
-brings it.  ``--model VideoLLaMA`` raises too, naming ROADMAP.md C.3: the
+trained checkpoint of ``cli/finetune.py``.  ``--quant-encoders`` stores
+the frozen encoders' large kernels int8 (``models/quant_tree.py``); a
+``--config``'s ``model.llm`` selects int4 weights or cache, W8A8,
+``scan_layers`` and ``mlp_seq_chunk``.  A config that asks for what the
+port does not run raises ``NotImplementedError`` naming its ROADMAP.md
+item.  ``--model VideoLLaMA`` raises too, naming ROADMAP.md C.3: the
 JAX package's serve CLI cannot serve that backbone either (its encode stream calls
 ``prepare_text`` and its engine ``prefix_and_prompt``, which VideoLLaMA
 lacks).
@@ -38,12 +41,6 @@ import numpy as np
 import torch
 
 logger = logging.getLogger("mraudio_tpu_torch")
-
-# flag → the ROADMAP.md item that ports its machinery
-_UNPORTED = {
-    "quant_encoders": "A.2: models/quant_tree.py",
-}
-
 
 def encode_request_stream(model, dataset, limit=None, device_embeds=True, encode_batch=1,
                           host_ahead=1, upload_ahead=False):
@@ -497,16 +494,12 @@ def main(argv=None):
     parser.add_argument("--request-timeout", type=float, default=0.0,
                         help="per-request deadline in seconds (0 = none)")
     parser.add_argument("--quant-encoders", action="store_true",
-                        help="int8-store the frozen encoder weights")
+                        help="store the frozen encoders' large kernels int8, dequantized "
+                             "where read (an approximation: the reference keeps them fp16)")
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on (default cuda; cpu runs the plain "
                              "versions of the kernels)")
     args = parser.parse_args(argv)
-
-    for flag, item in _UNPORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP.md {item})")
 
     logging.basicConfig(level=logging.INFO)
 
@@ -538,6 +531,10 @@ def main(argv=None):
     if args.checkpoint:
         load_trained(model, args.checkpoint)
     model = cast_params_for_inference(model)
+    if args.quant_encoders:
+        from mraudio_tpu_torch.models.quant_tree import quantize_module_
+
+        quantize_module_(model, keys=getattr(model, "ENCODER_PARAM_KEYS", ()))
 
     dataset = MRDataset(cfg.data, annotation_path=cfg.data.annotation_file, split="eval")
     limit = args.max_requests or None

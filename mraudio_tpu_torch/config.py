@@ -147,12 +147,15 @@ class LlamaConfig(_ConfigBase):
     max_seq_len: int = 4096
     dtype: str = "bfloat16"
     attention_bias: bool = False
-    # "none" | "int8" (per-output-channel weight-only) | "int4" (not ported)
+    # "none" | "int8" (per-output-channel weight-only) | "int4" (group-wise,
+    # int4_group_size input rows per f32 scale, two values per byte)
     quantization: str = "none"
     int4_group_size: int = 128
-    int8_dot: bool = False         # W8A8 path: not ported
+    # W8A8 on the int8 weights: per-row int8 activations, an exact int32
+    # product (an approximation of the weight-only path; precedes the GEMV)
+    int8_dot: bool = False
     # KV-cache storage: "none" | "int8" (per-(row, position, head) absmax
-    # with f32 scales) | "int4" (not ported)
+    # with f32 scales) | "int4" (the same, 15 levels, two values per byte)
     kv_quant: str = "none"
     # Post-prefill KV compaction, SnapKV (0 = off): each layer keeps its
     # `kv_keep` prefix columns with the most attention mass from the last
@@ -179,9 +182,14 @@ class LlamaConfig(_ConfigBase):
     # over the training path's attention tiles, which changes no
     # arithmetic; the port's tile loop is a Python loop already.
     attention_unroll_train: bool = False
+    # Tile the MLP's token axis in chunks of this many (0 = off); each tile
+    # is recomputed in the backward.
     mlp_seq_chunk: int = 0
     # Segmented prefill: segments of this many prefix tokens (0 = one-shot).
     prefill_chunk: int = 2048
+    # The JAX package's nn.scan parameter layout: the decoder's leaves are
+    # stored stacked under llm/layers at every boundary (converters, param
+    # store, checkpoints); the modules and the cache stay per layer.
     scan_layers: bool = False
     seq_shard: bool = False
 
@@ -325,9 +333,11 @@ class MeshConfig(_ConfigBase):
 @dataclass(frozen=True)
 class TrainConfig(_ConfigBase):
     """LoRA fine-tuning (``train/trainer.py``); ``seed`` also seeds the
-    random init of ``run_inference``.  ``quant_frozen="int8"``,
-    ``encoder_window`` and ``upload_overlap`` are refused by the trainer
-    (ROADMAP.md A.2 and A.11)."""
+    random init of ``run_inference``.  ``quant_frozen="int8"`` stores the
+    frozen kernels int8 (``models/quant_tree.py``); ``encoder_window`` W
+    keeps the frozen encoders on the host between windows of W batches,
+    and ``upload_overlap`` stages the next window's upload during the
+    current window's loss steps (``utils/packing.py``)."""
 
     lr: float = 3e-4
     weight_decay: float = 0.05
@@ -363,9 +373,10 @@ class RunConfig(_ConfigBase):
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
-    quant_encoders: bool = False   # not ported
-    # paths to converted pretrained weights (empty = random init; loading
-    # them is not ported)
+    # store the frozen encoders' large kernels int8 (models/quant_tree.py)
+    quant_encoders: bool = False
+    # paths to the reference's checkpoints, converted at load (empty =
+    # random init)
     llm_weights: str = ""
     vit_weights: str = ""
     beats_weights: str = ""

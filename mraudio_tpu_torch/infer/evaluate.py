@@ -67,17 +67,14 @@ def build_model(cfg: RunConfig, device="cuda"):
 
 def refuse_unported(cfg: RunConfig) -> None:
     """Raise ``NotImplementedError``, naming the ROADMAP.md item, for a
-    config that asks for what the port does not do: a tokenizer path,
-    int8 encoders, a mesh."""
+    config that asks for what the port does not do: a tokenizer path, a
+    mesh."""
     if cfg.tokenizer_path:
         raise NotImplementedError(
             "RunConfig.tokenizer_path is not read: the JAX package builds its models with "
             "ByteTokenizer and reads the field nowhere, so the port refuses it rather than "
             "ignore it (ROADMAP.md C.3); load a tokenizer with "
             "text.tokenizer.load_llama_tokenizer and pass it to the model instead")
-    if cfg.quant_encoders:
-        raise NotImplementedError("RunConfig.quant_encoders is not ported yet "
-                                  "(ROADMAP.md A.2: models/quant_tree.py)")
     if cfg.mesh.num_devices > 1:
         raise NotImplementedError("a mesh of more than one device is not ported yet "
                                   "(ROADMAP.md A.7: parallelism)")
@@ -101,7 +98,9 @@ def run_inference(
     Without ``model``, builds one on ``device`` with :func:`build_model`
     (seeded random weights and the checkpoints ``cfg`` names).  A config
     that names a tokenizer path raises ``NotImplementedError``.
-    Parameters are cast for inference in place.
+    Parameters are cast for inference in place; with
+    ``cfg.quant_encoders`` the model's ``ENCODER_PARAM_KEYS`` subtrees are
+    then stored int8 (``models/quant_tree.py``).
     ``batch_fallback``: on ``torch.cuda.OutOfMemoryError`` the driver
     frees the allocator's cache, halves the batch size and restarts the
     whole pass (records are written only after a pass completes)."""
@@ -111,6 +110,10 @@ def run_inference(
     if model is None:
         model = build_model(cfg, device)
     cast_params_for_inference(model)
+    if cfg.quant_encoders:
+        from mraudio_tpu_torch.models.quant_tree import quantize_module_
+
+        quantize_module_(model, keys=getattr(model, "ENCODER_PARAM_KEYS", ()))
 
     if annotations is None:
         annotations = load_annotations(cfg.data.annotation_file)

@@ -1,7 +1,9 @@
 """Parameter casting for inference: matmul and embedding weights become
 bf16; norm scales/biases, quantization scales and int8 weights keep
 their dtype.  The same name rule as the JAX package, applied to the
-module's dotted parameter names."""
+module's dotted parameter names; a kernel stored int8 by
+``models/quant_tree.py`` (its int8 values and f32 scale under
+``parametrizations``) keeps both."""
 
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ _KEEP_FP32_SCOPES = ("norm", "ln", "LayerNorm")
 
 def keeps_dtype(name: str, param: torch.Tensor) -> bool:
     names = name.split(".")
-    if not param.is_floating_point():
+    if not param.is_floating_point() or "parametrizations" in names:
         return True
     if names[-1] in _KEEP_FP32 and any(
         any(s in n for s in _KEEP_FP32_SCOPES) for n in names[:-1]

@@ -12,9 +12,16 @@ port's modules, which mirror the flax scope names:
   flatten to the port's 2-D / 1-D parameters;
 * the BEATs ``pos_conv`` kernel (k, in/groups, out) becomes torch's
   (out, in/groups, k);
-* ``Embed.embedding``, ``w_int8``/``scale``, ``lora_a``/``lora_b`` and
-  the saliency head's ``fc1``/``fc2`` copy as they are, in the dtypes
-  given (f32, f16, bf16, int8), both ways.
+* ``Embed.embedding``, ``w_int8``/``scale``, ``w_int4``/``w_int4_scale``,
+  ``lora_a``/``lora_b`` and the saliency head's ``fc1``/``fc2`` copy as
+  they are, in the dtypes given (f32, f16, bf16, int8, uint8), both ways;
+* the ``scan_layers`` layout: a decoder whose config sets it is stored
+  as ``llm/layers/...`` leaves with a leading (num_layers,) axis (the
+  JAX package's ``nn.scan`` tree) where the modules keep one block per
+  layer; :func:`flax_params` stacks, :func:`overlay_jax_params_` takes
+  either layout and unstacks, and :func:`stack_layers` /
+  :func:`unstack_layers` convert flat name dicts (the trainer's
+  checkpoints).
 
 :func:`overlay_jax_params_` copies a tree that covers part of the module
 (a converted checkpoint, ``models/convert_weights.py``), and
@@ -24,9 +31,10 @@ param store (``cli/convert.py`` writes the port's store with them).
 
 :func:`init_random_` fills every parameter from a ``torch.Generator``
 on the parameters' device, at any width.  Its int8 weights are seeded
-uniform values in [-127, 127] with per-column scales that give an
-effective N(0, 0.02)-sized weight — never the all-zero int8 weights of
-the flax init, which would hide a broken GEMV.
+uniform values in [-127, 127] (int4: uniform bytes, i.e. nibbles in
+[-8, 7]) with positive scales that give an effective N(0, 0.02)-sized
+weight — never the all-zero quantized weights of the flax init, which
+would hide a broken GEMV.
 """
 
 from __future__ import annotations
@@ -53,6 +61,19 @@ def _flatten(tree, prefix=()):
         yield prefix, tree
 
 
+def nested(flat: dict) -> dict:
+    """``{'/'-joined flax path: leaf}`` → the nested tree the loaders
+    take."""
+    tree: dict = {}
+    for name, leaf in flat.items():
+        *scopes, last = name.split("/")
+        node = tree
+        for s in scopes:
+            node = node.setdefault(s, {})
+        node[last] = leaf
+    return tree
+
+
 def torch_name(path: tuple) -> str:
     """Dotted port parameter name of a flax parameter path."""
     parts = []
@@ -73,24 +94,50 @@ def _to_tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _stacked_names(path: tuple, params: dict):
+    """The per-layer port names of a ``scan_layers`` leaf (``.../layers/
+    <rest>``, no layer index after ``layers``), or None when ``path`` is
+    not one."""
+    for j, p in enumerate(path[:-1]):
+        if p == "layers":
+            head = torch_name(path[:j])
+            rest = torch_name(path[j + 1:])
+            first = ".".join(filter(None, (head, "layers", "0", rest)))
+            if first in params:
+                return lambda i: ".".join(filter(None, (head, "layers", str(i), rest)))
+    return None
+
+
 @torch.no_grad()
 def overlay_jax_params_(module: nn.Module, tree: dict) -> set:
     """Copy every leaf of a JAX parameter tree (nested dicts of numpy
     arrays or tensors) into ``module``, each in the leaf's own dtype; the
-    tree may cover part of the module.  Returns the port names covered."""
+    tree may cover part of the module, and may hold a decoder in either
+    layout (a stacked ``layers`` leaf is split over the layers).  Returns
+    the port names covered."""
     params = dict(module.named_parameters())
     seen = set()
-    for path, arr in _flatten(tree):
-        name = torch_name(path)
-        if name not in params:
-            raise KeyError(f"JAX parameter {'/'.join(path)} has no port counterpart {name!r}")
-        t = _to_tensor(arr)
-        if name.endswith("pos_conv.kernel"):
-            t = t.permute(2, 1, 0)
+
+    def put(name, t, copy):
         p = params[name]
         # a tensor leaf (the param store's) is copied, never shared
-        p.data = t.reshape(p.shape).to(p.device, copy=isinstance(arr, torch.Tensor)).contiguous()
+        p.data = t.reshape(p.shape).to(p.device, copy=copy).contiguous()
         seen.add(name)
+
+    for path, arr in _flatten(tree):
+        name = torch_name(path)
+        t = _to_tensor(arr)
+        if name not in params:
+            per_layer = _stacked_names(path, params)
+            if per_layer is None:
+                raise KeyError(f"JAX parameter {'/'.join(path)} has no port counterpart "
+                               f"{name!r}")
+            for i in range(t.shape[0]):
+                put(per_layer(i), t[i], copy=True)
+            continue
+        if name.endswith("pos_conv.kernel"):
+            t = t.permute(2, 1, 0)
+        put(name, t, copy=isinstance(arr, torch.Tensor))
     return seen
 
 
@@ -116,11 +163,14 @@ def _flax_scopes(parts: list) -> list:
     return out
 
 
-def flax_params(module: nn.Module) -> dict:
+def flax_params(module: nn.Module, stacked: bool | None = None) -> dict:
     """``{'/'-joined flax path: tensor}`` for every parameter of
     ``module``, in the flax layout (the inverse of :func:`torch_name` and
     of the reshapes :func:`overlay_jax_params_` makes): views of the
-    parameters where a reshape suffices."""
+    parameters where a reshape suffices.  A decoder whose config sets
+    ``scan_layers`` (or every decoder, with ``stacked=True``; none, with
+    ``stacked=False``) gives its layers as stacked ``layers`` leaves
+    (copies)."""
     out = {}
     for mod_name, mod in module.named_modules():
         parts = mod_name.split(".") if mod_name else []
@@ -138,6 +188,50 @@ def flax_params(module: nn.Module) -> dict:
             elif parts and parts[-1] == "pos_conv" and leaf == "kernel":
                 t = t.permute(2, 1, 0)
             out["/".join(path)] = t
+    if stacked is False:
+        return out
+    from mraudio_tpu_torch.models.llama import LlamaModel
+
+    for mod_name, mod in module.named_modules():
+        if isinstance(mod, LlamaModel) and (stacked or mod.cfg.scan_layers):
+            prefix = "/".join(_flax_scopes(mod_name.split("."))) if mod_name else ""
+            out = stack_layers(out, prefix, mod.cfg.num_layers)
+    return out
+
+
+def stack_layers(flat: dict, prefix: str, num_layers: int) -> dict:
+    """A flat ``{flax name: tensor}`` dict with the decoder at ``prefix``
+    (``"llm"``, or ``""`` for a bare decoder) in the per-layer layout →
+    the ``scan_layers`` layout: every ``{prefix}/layer_i/<rest>`` leaf
+    stacked into ``{prefix}/layers/<rest>``, in layer order."""
+    head = f"{prefix}/" if prefix else ""
+    per_layer = re.compile(rf"^{re.escape(head)}layer_(\d+)/(.+)$")
+    out, groups = {}, {}
+    for k, v in flat.items():
+        m = per_layer.match(k)
+        if m:
+            groups.setdefault(m[2], {})[int(m[1])] = v
+        else:
+            out[k] = v
+    for rest, layers in groups.items():
+        out[f"{head}layers/{rest}"] = torch.stack([layers[i] for i in range(num_layers)])
+    return out
+
+
+def unstack_layers(flat: dict) -> dict:
+    """Inverse of :func:`stack_layers` over a flat ``{flax name: tensor}``
+    dict: every ``.../layers/<rest>`` leaf split into
+    ``.../layer_i/<rest>``; a dict with no stacked leaf comes back as it
+    is."""
+    out = {}
+    for k, v in flat.items():
+        parts = k.split("/")
+        j = next((j for j, p in enumerate(parts[:-1]) if p == "layers"), None)
+        if j is None:
+            out[k] = v
+            continue
+        for i in range(v.shape[0]):
+            out["/".join(parts[:j] + [f"layer_{i}"] + parts[j + 1:])] = v[i]
     return out
 
 
@@ -153,6 +247,7 @@ def init_random_(module: nn.Module, seed: int = 0, std: float = 0.02) -> nn.Modu
     device = next(iter(params.values())).device
     gen = torch.Generator(device=device).manual_seed(seed)
     int8_std = float(np.sqrt((255.0 ** 2 - 1.0) / 12.0))  # uniform ints on [-127, 127]
+    int4_std = float(np.sqrt((16.0 ** 2 - 1.0) / 12.0))   # uniform nibbles on [-8, 7]
     for name, p in params.items():
         parts = name.split(".")
         leaf, scope = parts[-1], parts[:-1]
@@ -160,6 +255,11 @@ def init_random_(module: nn.Module, seed: int = 0, std: float = 0.02) -> nn.Modu
         if p.dtype == torch.int8:
             p.copy_(torch.randint(-127, 128, p.shape, generator=gen, device=device,
                                   dtype=torch.int8))
+        elif p.dtype == torch.uint8:
+            p.copy_(torch.randint(0, 256, p.shape, generator=gen, device=device,
+                                  dtype=torch.uint8))
+        elif leaf == "w_int4_scale":
+            p.fill_(std / int4_std)
         elif leaf == "scale" and name[: -len("scale")] + "w_int8" in params:
             p.fill_(std / int8_std)
         elif leaf == "scale" or leaf == "grep_a":

@@ -1,7 +1,6 @@
 """Checkpoint converters: the reference's torch checkpoints → the JAX
 package's parameter layout → the port's modules (the JAX package's
-``models/convert_weights.py``, but for int4 and the ``scan_layers``
-layout).
+``models/convert_weights.py``).
 
 The reference assembles its model from heterogeneous checkpoints with
 key-routing surgery (``models/xinstructblip.py:614-655`` Q-Formers,
@@ -17,7 +16,9 @@ video/audio Q-Former      :func:`convert_qformer_bundle` (Q-Former +
 ``*_qformer.pth``         query tokens + modality LN + LLM projection,
                           filtered by the ``{modality}_`` prefixes)
 BLIP-2 stage-1 ``.pth``   :func:`convert_qformer_bundle` (fallback keys)
-Vicuna-7B HF weights      :func:`convert_llama_hf` (+ :func:`quantize_llama_int8`)
+Vicuna-7B HF weights      :func:`convert_llama_hf` (+ :func:`quantize_llama_int8`
+                          or :func:`quantize_llama_int4`, and
+                          :func:`stack_llm_layers` under ``scan_layers``)
 VideoLLaMA2-AV merged     :func:`convert_videollama`: a CLIP
 checkpoint                (:func:`convert_clip_vit_hf`) or SigLIP
                           (:func:`convert_siglip_vit_hf`) tower, the
@@ -320,6 +321,56 @@ def quantize_llama_int8(params: dict) -> dict:
     return walk(params, ())
 
 
+def quantize_llama_int4(params: dict, group_size: int = 128) -> dict:
+    """Float param tree → group-wise int4 weights + per-(group, out) f32
+    scales (``LlamaConfig.quantization="int4"``), the JAX package's numpy
+    arithmetic: symmetric absmax per group of ``group_size`` input rows,
+    scale absmax / 7, values clipped to [-8, 7], packed two per byte
+    pairing group halves (byte j holds element j in its low nibble and
+    element j + g/2 in its high: ``models/llama.py::LlamaLinear`` contracts
+    each nibble plane apart).  Every ``kernel`` under a ``*_proj`` scope
+    becomes ``w_int4`` (groups, g/2, out) uint8 and ``w_int4_scale``
+    (groups, out); LoRA, norm and embedding params pass through and
+    ``lm_head`` stays float, as on the int8 path."""
+
+    def walk(tree: dict, names: tuple) -> dict:
+        out = {}
+        for k, v in tree.items():
+            path = names + (str(k),)
+            if isinstance(v, dict):
+                out[k] = walk(v, path)
+            elif (k == "kernel" and "lm_head" not in path
+                  and any(n.endswith("_proj") for n in path)):
+                inf, outf = v.shape
+                if inf % group_size:
+                    raise ValueError(f"group_size={group_size} must divide in_features={inf}")
+                grouped = np.asarray(v, np.float32).reshape(inf // group_size, group_size, outf)
+                scale = np.abs(grouped).max(axis=1) / 7.0
+                scale = np.where(scale == 0, 1.0, scale)
+                q = np.clip(np.round(grouped / scale[:, None, :]), -8, 7)
+                qi = q.astype(np.int32) & 0xF
+                half = group_size // 2
+                out["w_int4"] = (qi[:, :half, :] | (qi[:, half:, :] << 4)).astype(np.uint8)
+                out["w_int4_scale"] = scale.astype(np.float32)
+            else:
+                out[k] = v
+        return out
+
+    return walk(params, ())
+
+
+def quantize_llm(llm: dict, llm_cfg) -> dict:
+    """The LLM subtree in the weight format ``llm_cfg.quantization`` asks
+    for (int8, int4 or float), then stacked under ``llm_cfg.scan_layers``."""
+    if llm_cfg.quantization == "int8":
+        llm = quantize_llama_int8(llm)
+    elif llm_cfg.quantization == "int4":
+        llm = quantize_llama_int4(llm, llm_cfg.int4_group_size)
+    if llm_cfg.scan_layers:
+        llm = stack_llm_layers(llm, llm_cfg.num_layers)
+    return llm
+
+
 # ---------------------------------------------------------------------------
 # BEATs
 # ---------------------------------------------------------------------------
@@ -535,21 +586,25 @@ def convert_videollama(sd: dict, cfg) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Not ported yet
+# Top-level loader
 # ---------------------------------------------------------------------------
-
-
-def quantize_llama_int4(params: dict, group_size: int = 128) -> dict:
-    raise NotImplementedError("int4 weights are not ported yet (ROADMAP.md A.2)")
 
 
 def stack_llm_layers(llm: dict, num_layers: int) -> dict:
-    raise NotImplementedError("the scan_layers layout is not ported yet (ROADMAP.md A.2)")
+    """``layer_i`` subtrees → one ``layers`` subtree whose leaves stack
+    along a new leading (num_layers,) axis: the ``cfg.scan_layers``
+    parameter layout (``models/convert_jax.py`` splits it over the port's
+    per-layer modules)."""
+    out = {k: v for k, v in llm.items() if not k.startswith("layer_")}
+    layers = [llm[f"layer_{i}"] for i in range(num_layers)]
 
+    def stack(trees: list):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return np.stack([np.asarray(t) for t in trees])
 
-# ---------------------------------------------------------------------------
-# Top-level loader
-# ---------------------------------------------------------------------------
+    out["layers"] = stack(layers)
+    return out
 
 
 def load_pretrained_params(model, cfg):
@@ -560,25 +615,24 @@ def load_pretrained_params(model, cfg):
     (quantized to int8 when the config asks).  One artifact is held on
     the host at a time.  Returns ``model``, its parameters in the
     checkpoints' dtypes (cast them with ``cast_params_for_inference``).
+    The LLM is quantized to int8 or int4 when the config asks
+    (:func:`quantize_llm`) and, under ``scan_layers``, stacked as the JAX
+    package stacks it, which the overlay splits over the layers again.
 
     For VideoLLaMA, ``cfg.llm_weights`` names the one merged checkpoint
-    (:func:`convert_videollama`; its LLM quantized to int8 when the
+    (:func:`convert_videollama`; its LLM quantized and stacked as the
     model's config asks), and ``cfg.beats_weights`` may overlay a BEATs
     checkpoint after it."""
     from mraudio_tpu_torch.models.videollama import VideoLLaMA
 
     llm_cfg = model.cfg.llm if isinstance(model, VideoLLaMA) else cfg.model.llm
-    if llm_cfg.quantization == "int4":
-        raise NotImplementedError("int4 weights are not ported yet (ROADMAP.md A.2)")
-    if llm_cfg.scan_layers:
-        raise NotImplementedError("the scan_layers layout is not ported yet (ROADMAP.md A.2)")
     init_random_(model, seed=cfg.train.seed)
 
     if isinstance(model, VideoLLaMA):
         if cfg.llm_weights:
             converted = convert_videollama(load_torch_state_dict(cfg.llm_weights), model.cfg)
-            if llm_cfg.quantization == "int8" and "llm" in converted:
-                converted["llm"] = quantize_llama_int8(converted["llm"])
+            if "llm" in converted:
+                converted["llm"] = quantize_llm(converted["llm"], llm_cfg)
             overlay_jax_params_(model, converted)
             logger.info("loaded VideoLLaMA checkpoint from %s", cfg.llm_weights)
         if cfg.beats_weights:
@@ -590,8 +644,7 @@ def load_pretrained_params(model, cfg):
     qcfg = cfg.model.qformer
 
     def llm(sd):
-        tree = convert_llama_hf(sd, llm_cfg)
-        return quantize_llama_int8(tree) if llm_cfg.quantization == "int8" else tree
+        return quantize_llm(convert_llama_hf(sd, llm_cfg), llm_cfg)
 
     steps = (
         (cfg.video_qformer_weights, "video Q-Former bundle",

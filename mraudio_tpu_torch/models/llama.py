@@ -1,28 +1,44 @@
-"""Llama/Vicuna decoder with embedding-level inputs and an int8 KV cache.
+"""Llama/Vicuna decoder with embedding-level inputs and a quantized KV
+cache.
 
-The main-path subset of the JAX package's decoder:
+The JAX package's decoder:
 
 * ``inputs_embeds`` in, positions from the mask (cumsum - 1, clamped);
-* int8 weight-only projections (per-output-channel f32 scale) with LoRA;
-  decode-shaped calls (<= 32 rows) go through the order-preserving GEMV
-  kernel when ``cfg.decode_gemv == "pallas"``;
-* an int8 KV cache (per-(row, position, head) absmax, scales stored
-  (B, kv_heads, KV)), written in place — the port owns its cache buffers.
-  ``cache_index`` is an int (every row writes columns ``[i, i + s)``) or
-  a (B,) tensor (row ``b`` writes ``[i_b, i_b + s)``: the speculative
-  decoders' per-row columns, one index write per (row, column));
+* base weights in float, int8 weight-only (per-output-channel f32
+  scale) or group-wise int4 (``w_int4`` nibble pairs, one f32 scale per
+  group and output), each with a LoRA adapter.  Decode-shaped int8 or
+  float calls (<= 32 rows) go through the order-preserving GEMV kernel
+  when ``cfg.decode_gemv == "pallas"``; ``cfg.int8_dot`` (W8A8) takes
+  precedence over it and quantizes the activations per row for an exact
+  int8 x int8 → int32 product; int4 never reaches the GEMV (the JAX
+  package's int4 branch has no kernel route);
+* an int8 or int4 KV cache (per-(row, position, head) absmax, scales
+  stored (B, kv_heads, KV); int4 packs two values per byte along
+  head_dim, ``ops/attention.py::pack_int4``), written in place — the
+  port owns its cache buffers.  ``cache_index`` is an int (every row
+  writes columns ``[i, i + s)``) or a (B,) tensor (row ``b`` writes
+  ``[i_b, i_b + s)``: the speculative decoders' per-row columns, one
+  index write per (row, column));
 * SnapKV compaction (``cfg.kv_keep``): a prefill given ``obs_start``
   accumulates each layer's observation-window score into the cache's
   ``obs_score``; :func:`compact_cache` keeps each layer's top-``keep``
   columns and a per-layer ``valid`` leaf, which every later call writes
   as tokens land and multiplies into ``kv_valid`` and the mask;
 * multi-token causal calls through the plain ``chunked_attention`` over
-  the cache as stored (``cfg.attention_impl == "chunked"``, the default),
-  or through the flash-attention kernel over the dequantized cache
-  (``"pallas"``) when the queries start at column 0, i.e. a one-shot
-  prefill or a segmented prefill's first segment; later segments, per-row
-  calls (``q_abs``) and one-token steps over the int8 cache take
-  ``chunked_attention`` as in the reference;
+  the cache as stored (``cfg.attention_impl == "chunked"``, the default;
+  an int4 cache is unpacked tile by tile), or through the flash-attention
+  kernel over the dequantized cache (``"pallas"``) when the queries start
+  at column 0, i.e. a one-shot prefill or a segmented prefill's first
+  segment; later segments, per-row calls (``q_abs``) and one-token steps
+  over the quantized cache take ``chunked_attention`` as in the
+  reference;
+* ``cfg.mlp_seq_chunk`` tiles the MLP's token axis (each tile
+  recomputed in the backward), parameters unchanged;
+* ``cfg.scan_layers`` is a parameter layout, not a loop: the modules and
+  the per-layer cache list stay as they are, and the flat parameter
+  names at every boundary (``models/convert_jax.py``, the param store,
+  the trainer's checkpoints) become ``llm/layers/...`` leaves with a
+  leading (num_layers,) axis, the JAX package's ``nn.scan`` layout;
 * f32 logits with padded vocab columns at ``finfo(f32).min``;
 * the training forward (no cache, grad enabled): LoRA dropout on the
   adapter input, each projection's mask drawn from a ``torch.Generator``
@@ -50,7 +66,8 @@ from mraudio_tpu_torch.config import LlamaConfig, LoraConfig
 from mraudio_tpu_torch.device import torch_dtype
 from mraudio_tpu_torch.models.layers import (DECODE_ROWS, NEG_INF, Embed, RMSNorm, _MatmulF32,
                                              _empty, mm_f32, pad_rows, top_k_indices)
-from mraudio_tpu_torch.ops.attention import chunked_attention, flash_attention
+from mraudio_tpu_torch.ops.attention import (chunked_attention, flash_attention, int4_planes,
+                                             pack_int4, unpack_int4)
 from mraudio_tpu_torch.ops.gemv import decode_gemv, supports
 
 
@@ -62,6 +79,28 @@ def quantize_kv(x: torch.Tensor):
     scale = torch.where(scale == 0, 1.0, scale)
     q = torch.round(xf / scale[..., None]).to(torch.int8)
     return q, scale
+
+
+def quantize_kv4(x: torch.Tensor):
+    """Per-(row, position, head) absmax int4 quantization, packed two
+    values per byte along the last axis (:func:`pack_int4`): returns
+    (uint8 (..., D/2), f32 scales), x ≈ unpack_int4(q) * scale[..., None].
+    Values clip to ±7 (15 levels; -8 is never written), scale absmax / 7."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) / 7.0
+    scale = torch.where(scale == 0, 1.0, scale)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -7, 7).to(torch.int8)
+    return pack_int4(q), scale
+
+
+def int_matmul(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 @ (K, N) int8 → int32, exact: on CUDA through
+    ``torch._int_mm`` (K and N multiples of 8; rows padded to
+    :data:`DECODE_ROWS`, as it takes more than 16), on the CPU as an int32
+    product."""
+    if not xq.is_cuda:
+        return xq.to(torch.int32) @ w.to(torch.int32)
+    return torch._int_mm(pad_rows(xq), w)[:xq.shape[0]]
 
 
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -126,7 +165,20 @@ def observation_scores(q_obs, k_full, k_scale, kv_valid, q_start: int, score) ->
     (B, KV), which also zeroes the rows of padding queries; K's scale
     (B, H, KV) multiplies the f32 logits.  Heads go 4 at a time (each
     softmax is per head, as in the reference), so no (B, H, W, KV) tile
-    is made."""
+    is made; an int4 cache (uint8 ``k_full``) is unpacked per head group.
+    On CUDA the batch rows go one at a time: the card groups a product's
+    and a reduction's terms by their batch and row counts, and a row's
+    score must not follow the rows beside it (the serving engine's
+    admission batch against the offline decoder's, under compaction)."""
+    if q_obs.is_cuda and q_obs.shape[0] > 1:
+        return torch.cat([_observation_scores(
+            q_obs[i:i + 1], k_full[i:i + 1], None if k_scale is None else k_scale[i:i + 1],
+            None if kv_valid is None else kv_valid[i:i + 1], q_start, score[i:i + 1])
+            for i in range(q_obs.shape[0])])
+    return _observation_scores(q_obs, k_full, k_scale, kv_valid, q_start, score)
+
+
+def _observation_scores(q_obs, k_full, k_scale, kv_valid, q_start: int, score) -> torch.Tensor:
     b, w, h, d = q_obs.shape
     kv_len = k_full.shape[1]
     dev = q_obs.device
@@ -138,7 +190,10 @@ def observation_scores(q_obs, k_full, k_scale, kv_valid, q_start: int, score) ->
     hc = 4 if h % 4 == 0 else 1
     for i in range(0, h, hc):
         q_c = q_obs[:, :, i:i + hc].transpose(1, 2).reshape(b * hc, w, d)
-        k_c = k_full[:, :, i:i + hc].to(q_obs.dtype).transpose(1, 2).reshape(b * hc, kv_len, d)
+        k_c = k_full[:, :, i:i + hc]
+        if k_c.dtype == torch.uint8:
+            k_c = unpack_int4(k_c)
+        k_c = k_c.to(q_obs.dtype).transpose(1, 2).reshape(b * hc, kv_len, d)
         logits = mm_f32(q_c, k_c.transpose(1, 2)).view(b, hc, w, kv_len) * (d ** -0.5)
         if k_scale is not None:
             logits = logits * k_scale[:, i:i + hc, None, :]
@@ -150,24 +205,27 @@ def observation_scores(q_obs, k_full, k_scale, kv_valid, q_start: int, score) ->
 
 
 class LlamaLinear(nn.Module):
-    """Projection with optional int8 base weights and a LoRA adapter.
-    ``quantize_ok=False`` keeps the lm_head in float."""
+    """Projection with float, int8 or int4 base weights and a LoRA
+    adapter.  ``quantize_ok=False`` keeps the lm_head in float."""
 
     def __init__(self, in_features: int, features: int, cfg: LlamaConfig,
                  lora: Optional[LoraConfig] = None, lora_target: bool = False,
                  quantize_ok: bool = True, use_bias: bool = False):
         super().__init__()
-        if quantize_ok and cfg.quantization == "int4":
-            raise NotImplementedError("int4 weights are not ported yet (ROADMAP.md A.2)")
-        if quantize_ok and cfg.quantization == "int8" and cfg.int8_dot:
-            raise NotImplementedError("the W8A8 int8_dot path is not ported yet (ROADMAP.md A.2)")
         self.cfg = cfg
         self.in_features, self.features = in_features, features
         self.dtype = torch_dtype(cfg.dtype)
         self.quantized = quantize_ok and cfg.quantization == "int8"
+        self.int4 = quantize_ok and cfg.quantization == "int4"
         if self.quantized:
             self.w_int8 = _empty(in_features, features, dtype=torch.int8)
             self.scale = _empty(features)
+        elif self.int4:
+            g = cfg.int4_group_size
+            if in_features % g:
+                raise ValueError(f"int4_group_size={g} must divide in_features={in_features}")
+            self.w_int4 = _empty(in_features // g, g // 2, features, dtype=torch.uint8)
+            self.w_int4_scale = _empty(in_features // g, features)
         else:
             self.kernel = _empty(in_features, features)
         self.bias = _empty(features) if use_bias else None
@@ -182,26 +240,77 @@ class LlamaLinear(nn.Module):
 
     def gemv_ok(self, x: torch.Tensor) -> bool:
         """Decode-shaped calls (<= 32 rows) take the GEMV kernel when
-        configured and the dims tile."""
-        return (self.cfg.decode_gemv == "pallas"
+        configured and the dims tile; int4 weights and ``int8_dot`` never
+        do (the reference routes neither to its kernel)."""
+        return (self.cfg.decode_gemv == "pallas" and not self.int4
+                and not (self.quantized and self.cfg.int8_dot)
                 and math.prod(x.shape[:-1]) <= DECODE_ROWS
                 and supports(self.in_features, self.features))
+
+    def _int8_dot(self, x: torch.Tensor) -> torch.Tensor:
+        """W8A8: per-row absmax int8 activations (round half to even), an
+        exact int8 x int8 → int32 product, then ``acc * (x_scale *
+        scale)`` in f32, cast to the model dtype — the reference's order."""
+        xf = x.float()
+        x_scale = xf.abs().amax(dim=-1, keepdim=True) / 127.0
+        x_scale = torch.where(x_scale == 0, 1.0, x_scale)
+        x_q = torch.round(xf / x_scale).to(torch.int8)
+        acc = int_matmul(x_q.reshape(-1, self.in_features), self.w_int8)
+        acc = acc.reshape(x.shape[:-1] + (self.features,))
+        return (acc.float() * (x_scale * self.scale)).to(self.dtype)
+
+    def _int4_matmul(self, x: torch.Tensor) -> torch.Tensor:
+        """Group-wise int4: each nibble plane (group elements ``[0, g/2)``
+        and ``[g/2, g)``) contracts against its half of every activation
+        group.  Over 16 tokens the scales fold into each plane's operand
+        and two (M, in/2) x (in/2, out) products follow; at 16 tokens or
+        fewer, per-group partial sums take ``* scale`` before the group
+        sum.  Operands in the model dtype on CUDA (the reference's TPU
+        route; decode rows padded to :data:`DECODE_ROWS`), f32 on the CPU
+        (its CPU route)."""
+        g = self.cfg.int4_group_size
+        ng, half = self.in_features // g, g // 2
+        lo, hi = int4_planes(self.w_int4)                  # (groups, g/2, out) int8
+        scale = self.w_int4_scale                          # (groups, out) f32
+        op = self.dtype if x.is_cuda else torch.float32
+        x2 = x.reshape(-1, self.in_features).to(op)
+        m = x2.shape[0]
+        xg = x2.view(m, ng, g)
+        xa, xb = xg[..., :half], xg[..., half:]
+        if m > 16:
+            lo_w = (lo * scale[:, None, :]).to(op).reshape(ng * half, self.features)
+            hi_w = (hi * scale[:, None, :]).to(op).reshape(ng * half, self.features)
+            y = (matmul_f32(xa.reshape(m, ng * half), lo_w)
+                 + matmul_f32(xb.reshape(m, ng * half), hi_w))
+        else:
+            def groups_major(t):                            # (M, groups, g/2) → (groups, M', g/2)
+                t = t.transpose(0, 1)
+                if t.is_cuda and m < DECODE_ROWS:
+                    t = F.pad(t, (0, 0, 0, DECODE_ROWS - m))
+                return t.contiguous()
+
+            acc = mm_f32(groups_major(xa), lo.to(op)) + mm_f32(groups_major(xb), hi.to(op))
+            y = (acc * scale[:, None, :]).sum(dim=0)[:m]
+        return y.to(self.dtype).reshape(x.shape[:-1] + (self.features,))
 
     def forward(self, x: torch.Tensor, dropout_key: tuple | None = None) -> torch.Tensor:
         """``dropout_key``: the training step's key; LoRA dropout then
         applies to the adapter's input."""
         dt = self.dtype
-        w = self.w_int8 if self.quantized else self.kernel.to(dt)
-        scale = self.scale if self.quantized else None
-        if self.gemv_ok(x):
+        if self.quantized and self.cfg.int8_dot:
+            y = self._int8_dot(x)
+        elif self.int4:
+            y = self._int4_matmul(x)
+        elif self.gemv_ok(x):
+            w = self.w_int8 if self.quantized else self.kernel.to(dt)
             rows = x.shape[:-1]
-            y = decode_gemv(x.reshape(-1, x.shape[-1]).to(dt).contiguous(), w, scale,
-                            out_dtype=dt)
+            y = decode_gemv(x.reshape(-1, x.shape[-1]).to(dt).contiguous(), w,
+                            self.scale if self.quantized else None, out_dtype=dt)
             y = y.reshape(rows + (self.features,))
         elif self.quantized:
-            y = (matmul_f32(x.to(dt), w.to(dt)) * scale).to(dt)
+            y = (matmul_f32(x.to(dt), self.w_int8.to(dt)) * self.scale).to(dt)
         else:
-            y = matmul_f32(x.to(dt), w).to(dt)
+            y = matmul_f32(x.to(dt), self.kernel.to(dt)).to(dt)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         if self.lora_scale:
@@ -259,10 +368,12 @@ class LlamaAttention(nn.Module):
         v = self.v_proj(x, dropout_key).view(b, s, kv_h, d)
 
         per_row = cache is not None and not isinstance(cache_index, int)
-        quantized = False
+        quantized = packed = False
         k_scale = v_scale = None
         if cache is not None:
             quantized = "k_scale" in cache
+            # int4: uint8 nibble pairs (B, KV, kv_h, D/2), unpacked where read
+            packed = quantized and cache["k"].dtype == torch.uint8
             if per_row:
                 # row b's s tokens land at columns [i_b, i_b + s), which are
                 # also their causal positions; one write per (row, column)
@@ -283,8 +394,9 @@ class LlamaAttention(nn.Module):
                 def write_scale(name, val):
                     cache[name][:, :, c0:c1] = val.transpose(1, 2)
             if quantized:
-                kq, ks = quantize_kv(k)
-                vq, vs = quantize_kv(v)
+                quantize = quantize_kv4 if packed else quantize_kv
+                kq, ks = quantize(k)
+                vq, vs = quantize(v)
                 write("k", kq)
                 write("v", vq)
                 write_scale("k_scale", ks)
@@ -334,7 +446,8 @@ class LlamaAttention(nn.Module):
         if streaming and (cfg.attention_impl == "chunked" or q_offset or per_row or s == 1):
             # the reference's XLA route; the flash kernel takes only
             # multi-token queries that start at column 0
-            scales = dict(k_scale=k_scale, v_scale=v_scale, scales_bhs=True) if quantized else {}
+            scales = (dict(k_scale=k_scale, v_scale=v_scale, scales_bhs=True, kv_packed=packed)
+                      if quantized else {})
             where = dict(q_abs=q_cols) if per_row else dict(q_offset=q_offset)
             out = chunked_attention(q, k_full, v_full, kv_valid, causal=True, kv_bshd=True,
                                     q_bshd=True, **where, **scales)
@@ -345,12 +458,16 @@ class LlamaAttention(nn.Module):
                     "defines none; train with attention_impl='chunked'")
             if quantized:
                 # the flash kernel takes bf16 K/V: dequantize the cache once
+                if packed:
+                    k_full, v_full = unpack_int4(k_full), unpack_int4(v_full)
                 k_full = k_full.to(dt) * k_scale.transpose(1, 2)[..., None].to(dt)
                 v_full = v_full.to(dt) * v_scale.transpose(1, 2)[..., None].to(dt)
             out = flash_attention(q.transpose(1, 2), k_full.transpose(1, 2),
                                   v_full.transpose(1, 2), kv_valid, causal=True)
             out = out.transpose(1, 2)
         else:
+            if packed:
+                k_full, v_full = unpack_int4(k_full), unpack_int4(v_full)
             logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_full.float()) * (d ** -0.5)
             if quantized:
                 logits = logits * k_scale[:, :, None, :]
@@ -366,15 +483,39 @@ class LlamaAttention(nn.Module):
 class LlamaMlp(nn.Module):
     def __init__(self, cfg: LlamaConfig, lora: Optional[LoraConfig]):
         super().__init__()
+        self.cfg = cfg
         targets = lora.target_modules if lora else ()
         hd, inter = cfg.hidden_size, cfg.intermediate_size
         self.gate_proj = LlamaLinear(hd, inter, cfg, lora, "gate_proj" in targets)
         self.up_proj = LlamaLinear(hd, inter, cfg, lora, "up_proj" in targets)
         self.down_proj = LlamaLinear(inter, hd, cfg, lora, "down_proj" in targets)
 
-    def forward(self, x, dropout_key=None):
+    def _core(self, x, dropout_key=None):
         return self.down_proj(F.silu(self.gate_proj(x, dropout_key)) * self.up_proj(x, dropout_key),
                               dropout_key)
+
+    def forward(self, x, dropout_key=None):
+        """With ``cfg.mlp_seq_chunk`` and more tokens than it, the token
+        axis goes in tiles of that many (the last zero-padded), each
+        recomputed in the backward when a gradient is taken, so only one
+        tile's (B, chunk, intermediate) temporaries live at a time.  Tile
+        ``t``'s LoRA dropout key gains ``t``."""
+        chunk = self.cfg.mlp_seq_chunk
+        s = x.shape[1]
+        if not chunk or s <= chunk:
+            return self._core(x, dropout_key)
+        pad = (-s) % chunk
+        xp = F.pad(x, (0, 0, 0, pad)) if pad else x
+        remat = torch.is_grad_enabled()
+        tiles = []
+        for t, i in enumerate(range(0, s + pad, chunk)):
+            key = None if dropout_key is None else tuple(dropout_key) + (t,)
+            if remat:
+                tiles.append(checkpoint(self._core, xp[:, i:i + chunk], key,
+                                        use_reentrant=False, preserve_rng_state=False))
+            else:
+                tiles.append(self._core(xp[:, i:i + chunk], key))
+        return torch.cat(tiles, dim=1)[:, :s]
 
 
 class LlamaBlock(nn.Module):
@@ -402,12 +543,8 @@ class LlamaModel(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, lora: Optional[LoraConfig] = None):
         super().__init__()
-        for flag, on in (("scan_layers", cfg.scan_layers), ("mlp_seq_chunk", cfg.mlp_seq_chunk)):
-            if on:
-                raise NotImplementedError(f"LlamaConfig.{flag} is not ported yet "
-                                          "(ROADMAP.md A.2)")
-        if cfg.kv_quant not in ("none", "int8"):
-            raise NotImplementedError(f"kv_quant={cfg.kv_quant!r} is not ported yet")
+        if cfg.kv_quant not in ("none", "int8", "int4"):
+            raise ValueError(f"unknown kv_quant={cfg.kv_quant!r}")
         self.cfg = cfg
         self.dtype = torch_dtype(cfg.dtype)
         self.embed_tokens = Embed(cfg.padded_vocab_size, cfg.hidden_size)
@@ -510,22 +647,32 @@ def compact_cache(cfg: LlamaConfig, cache: list, kv_valid, prefix_len: int,
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int, device="cuda",
                valid: bool = False) -> list:
     """Per-layer KV cache dicts: (B, max_len, kv_heads, D) values (int8
-    plus (B, kv_heads, max_len) f32 scales with ``kv_quant="int8"``);
-    ``valid`` adds the compacted cache's per-layer (B, max_len) leaf."""
+    plus (B, kv_heads, max_len) f32 scales with ``kv_quant="int8"``; uint8
+    nibble pairs (B, max_len, kv_heads, D/2) and the same scales with
+    ``"int4"``); ``valid`` adds the compacted cache's per-layer
+    (B, max_len) leaf.  A list under ``cfg.scan_layers`` too: the JAX
+    package's stacked cache is its ``nn.scan`` plumbing.  The int4 leaves
+    keep their (kv_heads, D/2) axes, which the JAX package merges into one
+    only to spare a TPU lane tile its padding."""
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    if cfg.kv_quant == "int8":
+    if cfg.kv_quant in ("int8", "int4"):
+        qdtype = torch.int8
+        if cfg.kv_quant == "int4":
+            if cfg.head_dim % 2:
+                raise ValueError("kv_quant='int4' needs an even head_dim")
+            shape, qdtype = shape[:-1] + (cfg.head_dim // 2,), torch.uint8
         sshape = (batch, cfg.num_kv_heads, max_len)
         layers = [
             {
-                "k": torch.zeros(shape, dtype=torch.int8, device=device),
-                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k": torch.zeros(shape, dtype=qdtype, device=device),
+                "v": torch.zeros(shape, dtype=qdtype, device=device),
                 "k_scale": torch.zeros(sshape, dtype=torch.float32, device=device),
                 "v_scale": torch.zeros(sshape, dtype=torch.float32, device=device),
             }
             for _ in range(cfg.num_layers)
         ]
     elif cfg.kv_quant != "none":
-        raise NotImplementedError(f"kv_quant={cfg.kv_quant!r} is not ported yet")
+        raise ValueError(f"unknown kv_quant={cfg.kv_quant!r}")
     else:
         dt = torch_dtype(cfg.dtype)
         layers = [

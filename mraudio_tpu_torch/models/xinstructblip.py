@@ -280,7 +280,9 @@ class XInstructBLIP(nn.Module):
         """uint8 video + waveform → {modality: (B, T, Q, D_llm)}.
         ``crop_params`` (B, 5) applies the train-time crop and flip
         (``ops/image.py::augment_and_normalize``); None is the eval
-        preprocessing."""
+        preprocessing.  Encoder kernels stored int8 (``--quant-encoders``,
+        ``train.quant_frozen``; ``models/quant_tree.py``) dequantize as
+        they are read."""
         cfg = self.cfg
         out = {}
         if "video" in cfg.modalities:

@@ -13,8 +13,11 @@ same function.
 (``mraudio_tpu/ops/attention.py::chunked_attention``), plain PyTorch
 here too: the multi-token route of the default configuration
 (``attention_impl="chunked"``), every prefill segment after the first,
-every one-token decode step over the int8 cache and every speculative
-pass (per-row columns, ``q_abs``).
+every one-token decode step over the int8 or int4 cache and every
+speculative pass (per-row columns, ``q_abs``).
+
+:func:`pack_int4` and :func:`unpack_int4` are the int4 cache's nibble
+packing (``kv_quant="int4"``), the JAX package's plane convention.
 """
 
 from __future__ import annotations
@@ -26,6 +29,30 @@ import torch
 
 from mraudio_tpu_torch.models.layers import NEG_INF, mm_f32
 from mraudio_tpu_torch.ops import build
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int8 values in [-8, 7] → uint8 nibble pairs along the last axis:
+    element ``i`` of the first half in the low nibble, element ``i`` of
+    the second half in the high nibble (a plane convention, not adjacent
+    pairs; the int4 weights use the same)."""
+    d = q.shape[-1]
+    lo = q[..., : d // 2].to(torch.int32)
+    hi = q[..., d // 2:].to(torch.int32)
+    return (((hi & 15) << 4) | (lo & 15)).to(torch.uint8)
+
+
+def int4_planes(packed: torch.Tensor):
+    """The two sign-extended int8 planes of uint8 nibble pairs: ``(low,
+    high)``, each the shape of ``packed``.  The bytes are read as int8 and
+    shifted arithmetically, as JAX's ``shift_right_arithmetic``."""
+    i8 = packed.view(torch.int8)
+    return (i8 << 4) >> 4, i8 >> 4
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_int4`: uint8 (..., D/2) → int8 (..., D)."""
+    return torch.cat(int4_planes(packed), dim=-1)
 
 
 def flash_attention_plain(q, k, v, mask, causal: bool = True,
@@ -116,7 +143,8 @@ def _grad_needed(*tensors) -> bool:
 def chunked_attention(q, k, v, mask, causal: bool = True, block_k: int = 512,
                       block_q: int = 512, k_scale=None, v_scale=None, kv_bshd: bool = False,
                       q_bshd: bool = False, q_offset: int = 0, q_abs=None,
-                      scales_bhs: bool = False, _stats: list | None = None) -> torch.Tensor:
+                      scales_bhs: bool = False, kv_packed: bool = False,
+                      _stats: list | None = None) -> torch.Tensor:
     """Online-softmax attention over ``block_q`` query tiles and
     ``block_k`` key chunks, with the reference's contract:
 
@@ -126,7 +154,10 @@ def chunked_attention(q, k, v, mask, causal: bool = True, block_k: int = 512,
     * int8 K/V with ``k_scale``/``v_scale``: key columns are converted to
       q's dtype, K's scale multiplies the f32 logits and V's the
       probabilities before their cast for p·v.  Scales follow k's layout,
-      or are (B, H, KV) with ``scales_bhs``;
+      or are (B, H, KV) with ``scales_bhs``; with ``kv_packed`` K/V are
+      the int4 cache's uint8 nibble pairs (B, KV, H, D/2), which needs
+      ``kv_bshd``: each tile is unpacked to int8 (:func:`unpack_int4`)
+      where it is read, never the whole cache;
     * the causal position of a query is its cache column: ``q_offset`` +
       its index (a prefill segment, a one-token decode step), or, with
       ``q_abs`` (B, S), a column per row (a speculative pass, whose rows
@@ -163,6 +194,8 @@ def chunked_attention(q, k, v, mask, causal: bool = True, block_k: int = 512,
                                       "K/V whose queries start at column 0 (training)")
         return _ChunkedAttentionFn.apply(q, k, v, mask, causal, block_k, block_q, kv_bshd,
                                          q_bshd)
+    if kv_packed and not kv_bshd:
+        raise ValueError("kv_packed requires the kv_bshd cache layout")
     if q_bshd:
         b, s, h, d = q.shape
     else:
@@ -175,6 +208,8 @@ def chunked_attention(q, k, v, mask, causal: bool = True, block_k: int = 512,
     dev = q.device
 
     def heads_major(t):           # a (B, KV-slice, H, ...) slice → (B, H, ...)
+        if kv_packed:
+            t = unpack_int4(t)
         return t.transpose(1, 2) if kv_bshd else t
 
     def scales_bhk(t):            # a scale slice → (B, H, KV-slice)

@@ -57,11 +57,11 @@ def load_checkpoint(path: str) -> dict:
 def apply_trainable(model: nn.Module, trainable_flat: dict) -> nn.Module:
     """Overlay a checkpoint's trainable leaves onto ``model``'s parameters
     (each copied in the leaf's own dtype); a name the model lacks
-    raises."""
-    from mraudio_tpu_torch.models.convert_jax import torch_name
+    raises.  Stacked ``scan_layers`` leaves are split over the layers."""
+    from mraudio_tpu_torch.models.convert_jax import torch_name, unstack_layers
 
     params = dict(model.named_parameters())
-    for k, v in trainable_flat.items():
+    for k, v in unstack_layers(trainable_flat).items():
         name = torch_name(tuple(k.split("/")))
         if name not in params:
             raise KeyError(f"checkpoint param {k} not in model")

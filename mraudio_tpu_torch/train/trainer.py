@@ -19,10 +19,27 @@ checkpoints (the JAX package's ``train/trainer.py``).
 * Validation generates on the val split and scores the records against
   themselves (each carries the ground truth and the prediction); the best
   MR-full-R1-avg selects ``checkpoint_best``.
+* ``train.quant_frozen="int8"``: every eligible frozen float kernel is
+  stored int8 and dequantized where it is read
+  (``models/quant_tree.py``), after the bf16 cast.
+* ``train.encoder_window`` (W): the frozen encoders live in pinned host
+  memory; each window of W batches uploads them in one packed copy per
+  dtype (``utils/packing.py``), encodes its batches, drops the device
+  copy, then runs the W loss steps with only the LLM's weights on the
+  device.  The same computations on the same inputs in the same order as
+  the per-batch split step (crops and dropout keys follow each batch's
+  step), so the bits are its.  ``train.upload_overlap`` issues the next
+  window's copies on a side stream while this window's loss steps run,
+  when the card has 1.1x the packed bytes above the observed peak, and
+  otherwise stays serialized (logged); each window's ``window`` run-log
+  event says which path ran and whether an encoder leaf was on the
+  device during its loss steps.
+* Under ``scan_layers`` the checkpoints hold the decoder's leaves
+  stacked, the JAX package's layout (``models/convert_jax.py::
+  stack_layers``); the trainer's own leaves stay per layer.
 
-Refused (``NotImplementedError`` naming the ROADMAP.md item):
-``quant_frozen="int8"`` (A.2), ``encoder_window`` and ``upload_overlap``
-(A.11), a mesh of more than one device (A.7).
+Refused (``NotImplementedError`` naming the ROADMAP.md item): a mesh of
+more than one device (A.7).
 
 Both backbones train: X-InstructBLIP (LoRA, and the saliency head) and
 VideoLLaMA (LoRA, the connector and the audio projector), each by its
@@ -32,6 +49,7 @@ its ``ENCODER_PARAM_KEYS`` and has ``_loss_from_tokens``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -45,7 +63,8 @@ from mraudio_tpu_torch.config import RunConfig
 from mraudio_tpu_torch.data.dataset import BatchLoader, MRDataset
 from mraudio_tpu_torch.eval.mr_eval import eval_submission
 from mraudio_tpu_torch.models.casting import keeps_dtype
-from mraudio_tpu_torch.models.convert_jax import flax_params, torch_name
+from mraudio_tpu_torch.models.convert_jax import (flax_params, stack_layers, torch_name,
+                                                  unstack_layers)
 from mraudio_tpu_torch.text.postprocess import moment_str_to_list, post_process
 from mraudio_tpu_torch.train import checkpoint as ckpt
 from mraudio_tpu_torch.train.optim import (DEFAULT_TRAINABLE_PATTERN, build_optimizer,
@@ -65,15 +84,8 @@ class Preempted(RuntimeError):
 def refuse_unported(cfg: RunConfig) -> None:
     """Raise ``NotImplementedError``, naming the ROADMAP.md item, for a
     training configuration the port does not run."""
-    tc = cfg.train
-    if tc.quant_frozen == "int8":
-        raise NotImplementedError("train.quant_frozen='int8' is not ported yet "
-                                  "(ROADMAP.md A.2: models/quant_tree.py)")
-    if tc.quant_frozen not in ("none", ""):
-        raise ValueError(f"unknown quant_frozen={tc.quant_frozen!r}")
-    if tc.encoder_window > 0 or tc.upload_overlap:
-        raise NotImplementedError("train.encoder_window and train.upload_overlap are not "
-                                  "ported yet (ROADMAP.md A.11: utils/packing.py)")
+    if cfg.train.quant_frozen not in ("none", "", "int8"):
+        raise ValueError(f"unknown quant_frozen={cfg.train.quant_frozen!r}")
     if cfg.mesh.num_devices > 1:
         raise NotImplementedError("a mesh of more than one device is not ported yet "
                                   "(ROADMAP.md A.7: parallelism)")
@@ -98,7 +110,7 @@ class Trainer:
         self.model = model
         self.trainable_pattern = getattr(model, "TRAINABLE_PATTERN", DEFAULT_TRAINABLE_PATTERN)
         params = dict(model.named_parameters())
-        names, _ = split_trainable(flax_params(model), self.trainable_pattern)
+        names, _ = split_trainable(flax_params(model, stacked=False), self.trainable_pattern)
         self.trainable = {}
         with torch.no_grad():
             for flax_name, view in names.items():
@@ -118,10 +130,31 @@ class Trainer:
         n_train = sum(p.numel() for p in self.trainable.values())
         logger.info("trainable params: %d / %d", n_train,
                     sum(p.numel() for p in params.values()))
+        if tc.quant_frozen == "int8":
+            from mraudio_tpu_torch.models.quant_tree import quantize_module_
+
+            saved = quantize_module_(model, skip=set(self.trainable))
+            logger.info("quant_frozen=int8: %.2f GB of frozen weights saved", saved / 2 ** 30)
         enc_keys = getattr(model, "ENCODER_PARAM_KEYS", None)
         self.split_encode = (tc.split_encode_step and enc_keys is not None
                              and hasattr(model, "_loss_from_tokens")
                              and not any(k.split("/")[0] in enc_keys for k in self.trainable))
+        self._windowed = tc.encoder_window > 0
+        self._staged_enc = None            # the next window's staged copies
+        self._overlap_ok = bool(tc.upload_overlap)
+        if self._windowed:
+            if not self.split_encode:
+                raise ValueError("train.encoder_window requires split_encode_step=True and "
+                                 "fully frozen encoder subtrees")
+            self._enc_params = {n: p for n, p in model.named_parameters()
+                                if n.split(".")[0] in enc_keys}
+            from mraudio_tpu_torch.utils.packing import make_packed_uploader
+
+            self._uploader, self._enc_nbytes = make_packed_uploader(
+                {n: p.data for n, p in self._enc_params.items()}, self.device)
+            self._encoders_to_host()
+            logger.info("encoder_window=%d: packed encoder subtree %.2f GB on the host",
+                        tc.encoder_window, self._enc_nbytes / 2 ** 30)
 
         if train_dataset is None:
             train_dataset = MRDataset(cfg.data, annotation_path=cfg.data.train_annotation_file,
@@ -195,27 +228,144 @@ class Trainer:
 
     def train_step(self, batch) -> torch.Tensor:
         """One micro-step on ``batch``; returns the loss, on the device."""
-        model, tc = self.model, self.cfg.train
-        arrays = model.device_arrays(model.loss_arrays(batch))
-        crop = self._sample_crops(batch)
-        key = self.dropout_key() if model.cfg.lora.dropout > 0 else None
-        n_frms = int(batch.timestamps.shape[1])
+        model = self.model
+        arrays, crop, key, n_frms = self._step_inputs(batch, self.global_step)
         if self.split_encode:
-            with record_function("encode"), torch.no_grad():
-                modal = model._encode_modality_tokens(*arrays[:4], n_frms, crop_params=crop)
+            return self._loss_step(self._encode(arrays, crop, n_frms), arrays, key)
         with record_function("loss_fwd_bwd"):
-            if self.split_encode:
-                loss = model._loss_from_tokens(modal, *arrays[4:], dropout_key=key)
-            else:
-                loss = model._loss_fn(*arrays, crop_params=crop, dropout_key=key, n_frms=n_frms)
-            leaves = list(self.trainable.values())
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-            grads = {k: torch.zeros_like(p) if g is None else g
-                     for (k, p), g in zip(self.trainable.items(), grads)}
+            loss = model._loss_fn(*arrays, crop_params=crop, dropout_key=key, n_frms=n_frms)
+            grads = self._grads(loss)
+        return self._apply(loss, grads)
+
+    def _step_inputs(self, batch, step: int) -> tuple:
+        """Micro-step ``step``'s device arrays, crops, dropout key and frame
+        count for ``batch``."""
+        model = self.model
+        arrays = model.device_arrays(model.loss_arrays(batch))
+        key = self.dropout_key(step) if model.cfg.lora.dropout > 0 else None
+        return arrays, self._sample_crops(batch, step), key, int(batch.timestamps.shape[1])
+
+    def _encode(self, arrays, crop, n_frms) -> dict:
+        with record_function("encode"), torch.no_grad():
+            return self.model._encode_modality_tokens(*arrays[:4], n_frms, crop_params=crop)
+
+    def _grads(self, loss) -> dict:
+        leaves = list(self.trainable.values())
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return {k: torch.zeros_like(p) if g is None else g
+                for (k, p), g in zip(self.trainable.items(), grads)}
+
+    def _apply(self, loss, grads) -> torch.Tensor:
         with record_function("optimizer"):
-            good = torch.isfinite(loss) if tc.nan_guard else None
+            good = torch.isfinite(loss) if self.cfg.train.nan_guard else None
             self.opt.step(self.trainable, grads, good)
         return loss.detach()
+
+    def _loss_step(self, modal: dict, arrays, key) -> torch.Tensor:
+        """The LLM loss, its gradients and the update from encoded tokens."""
+        with record_function("loss_fwd_bwd"):
+            loss = self.model._loss_from_tokens(modal, *arrays[4:], dropout_key=key)
+            grads = self._grads(loss)
+        return self._apply(loss, grads)
+
+    # ------------------------------------------------------------------
+    # train.encoder_window: the frozen encoders on the host between windows
+
+    @torch.no_grad()
+    def _encoders_to_host(self) -> None:
+        """Point every encoder leaf at its view of the packed host copy;
+        the device copy goes with its last reference."""
+        for n, p in self._enc_params.items():
+            p.data = self._uploader.host[n]
+
+    def encoders_on_device(self) -> bool:
+        return any(p.device != torch.device("cpu") for p in self._enc_params.values())
+
+    @torch.no_grad()
+    def _encoders_to_device(self, staged=None) -> None:
+        """One packed copy per dtype (or the copies ``staged`` earlier),
+        then every encoder leaf a view into the device buffers."""
+        views = self._uploader(staged)
+        for n, p in self._enc_params.items():
+            p.data = views[n]
+
+    def _stage_encoders(self):
+        """Issue the next window's copies now (``train.upload_overlap``),
+        or return None and stay serialized when the card lacks 1.1x the
+        packed bytes above the peak seen so far (its memory is what the
+        loss steps sized) or the staging runs out of memory."""
+        if self.device.type == "cuda":
+            free, _ = torch.cuda.mem_get_info(self.device)
+            limit = free + torch.cuda.memory_reserved(self.device)
+            margin = limit - torch.cuda.max_memory_allocated(self.device)
+            if margin < self._enc_nbytes * 1.1:
+                logger.warning("upload_overlap: %.2f GB above the observed peak < 1.1x the "
+                               "%.2f GB packed encoders; staying serialized",
+                               margin / 2 ** 30, self._enc_nbytes / 2 ** 30)
+                self._overlap_ok = False
+                return None
+        try:
+            return self._uploader.stage()
+        except torch.cuda.OutOfMemoryError:
+            logger.warning("no device memory to double-buffer the encoder upload; falling "
+                           "back to serialized per-window uploads")
+            self._overlap_ok = False
+            return None
+
+    @contextlib.contextmanager
+    def _encoders_resident(self):
+        """The encoders on the device for the duration (validation)."""
+        if not self._windowed:
+            yield
+            return
+        self._encoders_to_device(self._staged_enc)
+        self._staged_enc = None
+        try:
+            yield
+        finally:
+            self._encoders_to_host()
+
+    def _train_epoch_windowed(self, epoch: int, metric_logger, skip: int) -> None:
+        """Windows of W batches: upload the encoders, encode the window,
+        drop the device copy, then the window's loss steps.  Each batch's
+        crops and dropout key are those of the step it will run at."""
+        w = self.cfg.train.encoder_window
+        pending = []
+
+        def flush(more: bool) -> None:
+            if not pending:
+                return
+            staged = self._staged_enc is not None
+            self._encoders_to_device(self._staged_enc)
+            self._staged_enc = None
+            modals = [self._encode(arrays, crop, n) for arrays, crop, _, n in pending]
+            self._encoders_to_host()
+            if more and self._overlap_ok:
+                self._staged_enc = self._stage_encoders()
+            on_device = self.encoders_on_device()
+            allocated = (torch.cuda.memory_allocated(self.device)
+                         if self.device.type == "cuda" else 0)
+            for (arrays, _, key, _), modal in zip(pending, modals):
+                loss = self._loss_step(modal, arrays, key)
+                on_device = on_device or self.encoders_on_device()
+                self.global_step += 1
+                self._step_in_epoch += 1
+                self._flush_pending()
+                self._pending = (loss, self.global_step, epoch, metric_logger)
+            self.runlog.log("window", epoch=epoch, step=self.global_step, batches=len(pending),
+                            staged_upload=staged, next_staged=self._staged_enc is not None,
+                            encoders_on_device_during_steps=on_device,
+                            allocated_bytes_before_steps=allocated)
+            pending.clear()
+            if self._preempt_requested:
+                self._preempt_exit(epoch)
+
+        for batch in self.train_loader.iter_from(skip):
+            if len(pending) >= w:
+                flush(more=True)
+            pending.append(self._step_inputs(batch, self.global_step + len(pending)))
+        flush(more=False)
+        self._staged_enc = None
 
     # ------------------------------------------------------------------
 
@@ -273,14 +423,17 @@ class Trainer:
         # batches continues the stream bitwise
         skip, self._skip_steps = self._skip_steps, 0
         self._step_in_epoch = skip
-        for i, batch in enumerate(self.train_loader.iter_from(skip), start=skip):
-            loss = self.train_step(batch)
-            self.global_step += 1
-            self._step_in_epoch = i + 1
-            self._flush_pending()
-            self._pending = (loss, self.global_step, epoch, metric_logger)
-            if self._preempt_requested:
-                self._preempt_exit(epoch)
+        if self._windowed:
+            self._train_epoch_windowed(epoch, metric_logger, skip)
+        else:
+            for i, batch in enumerate(self.train_loader.iter_from(skip), start=skip):
+                loss = self.train_step(batch)
+                self.global_step += 1
+                self._step_in_epoch = i + 1
+                self._flush_pending()
+                self._pending = (loss, self.global_step, epoch, metric_logger)
+                if self._preempt_requested:
+                    self._preempt_exit(epoch)
         self._flush_pending()
         logger.info("Averaged stats: %s", metric_logger.global_avg())
         return {k: f"{meter.global_avg:.3f}" for k, meter in metric_logger.meters.items()}
@@ -319,6 +472,7 @@ class Trainer:
     def _preempt_exit(self, epoch: int):
         """Save ``checkpoint_preempt`` at the exact step position and stop."""
         self._flush_pending()
+        self._staged_enc = None
         self._preempt_path = self._save_checkpoint(epoch, is_best=False, name="preempt")
         self.runlog.log("preempt", epoch=epoch, step=self.global_step,
                         step_in_epoch=self._step_in_epoch)
@@ -328,7 +482,12 @@ class Trainer:
 
     def eval_epoch(self) -> dict:
         """Generate on the val split and score the records against
-        themselves; with the saliency head, the HL metrics too."""
+        themselves; with the saliency head, the HL metrics too.  Under
+        ``encoder_window`` the encoders come to the device for it."""
+        with self._encoders_resident():
+            return self._eval_epoch()
+
+    def _eval_epoch(self) -> dict:
         from mraudio_tpu_torch.infer.evaluate import saliency_to_clip_grid
 
         want_saliency = bool(getattr(self.model.cfg, "saliency_head", False))
@@ -365,8 +524,9 @@ class Trainer:
     def _save_checkpoint(self, epoch: int, is_best: bool, name: str | None = None) -> str:
         if name is None:
             name = "best" if is_best else str(epoch)
-        path = ckpt.save_checkpoint(self.cfg.train.output_dir, name, self.trainable,
-                                    self.opt.state_dict(), epoch)
+        path = ckpt.save_checkpoint(self.cfg.train.output_dir, name,
+                                    self._layout(self.trainable),
+                                    self._layout(self.opt.state_dict()), epoch)
         # the exact step position: a resume continues the LR schedule and
         # the dropout and crop streams, and (preempt) skips the consumed
         # part of the epoch
@@ -376,6 +536,17 @@ class Trainer:
                        "step_in_epoch": step_in_epoch}, f)
         logger.info("Saving checkpoint at epoch %d to %s.", epoch, path)
         return path
+
+    def _layout(self, flat: dict) -> dict:
+        """A flat dict of per-layer names in the checkpoint's layout: the
+        decoder's leaves stacked under ``scan_layers`` (also inside the
+        optimizer's ``mu/``, ``nu/`` and ``acc/`` names)."""
+        llm = getattr(self.model, "llm", None)
+        if llm is None or not llm.cfg.scan_layers:
+            return flat
+        for prefix in ("llm", "mu/llm", "nu/llm", "acc/llm"):
+            flat = stack_layers(flat, prefix, llm.cfg.num_layers)
+        return flat
 
     @torch.no_grad()
     def _overlay(self, restored: dict) -> None:
@@ -388,8 +559,8 @@ class Trainer:
                                       "(ROADMAP.md A.10: utils/fetch.py)")
         path = ckpt.resolve_path(path)
         payload = ckpt.load_checkpoint(path)
-        self._overlay(payload["model"])
-        self.opt.load_state_dict(payload["opt_state"])
+        self._overlay(unstack_layers(payload["model"]))
+        self.opt.load_state_dict(unstack_layers(payload["opt_state"]))
         epoch = int(payload["epoch"])
         meta = None
         if os.path.exists(path + ckpt.META_SUFFIX):

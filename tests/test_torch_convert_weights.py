@@ -90,9 +90,14 @@ def assert_same_leaves(ours: dict, theirs: dict, skip=()):
             assert np.array_equal(np.signbit(a), np.signbit(b)) or np.isnan(a).any(), k
 
 
+def _int_sentinel(dtype) -> int:
+    return -128 if dtype == np.int8 else 255
+
+
 def _fill(tree, float_value):
     return {k: _fill(v, float_value) if isinstance(v, dict)
-            else np.full(v.shape, -128 if v.dtype == np.int8 else float_value, v.dtype)
+            else np.full(v.shape, float_value if np.issubdtype(v.dtype, np.floating)
+                         else _int_sentinel(v.dtype), v.dtype)
             for k, v in tree.items()}
 
 
@@ -116,7 +121,8 @@ def jax_init_filled(float_value=np.nan):
 @torch.no_grad()
 def _sentinel_(module, seed=0):
     for p in module.parameters():
-        p.fill_(-128 if p.dtype == torch.int8 else float("nan"))
+        p.fill_(float("nan") if p.is_floating_point() else
+                _int_sentinel(np.int8 if p.dtype == torch.int8 else np.uint8))
     return module
 
 
@@ -240,16 +246,28 @@ def test_llama_tied_head_and_bias_flavours(ckpt):
             tcw.convert_llama_hf(sd_, cfg_)
 
 
-def test_unported_cases_name_their_item():
-    for fn, args, item in ((tcw.quantize_llama_int4, ({},), "A.2"),
-                           (tcw.stack_llm_layers, ({}, 2), "A.2")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-            fn(*args)
-    for field, value in (("quantization", "int4"), ("scan_layers", True)):
-        cfg = RunConfig(model=tiny_model_config())
-        cfg = cfg.replace(model=cfg.model.replace(llm=cfg.model.llm.replace(**{field: value})))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.2"):
-            tcw.load_pretrained_params(None, cfg)
+def test_unported_cases_name_their_item(ckpt, monkeypatch):
+    """int4 weights and the ``scan_layers`` layout, refused until they
+    were ported: ``load_pretrained_params`` over the fabricated Vicuna
+    puts JAX's tree into the port's modules, ``quantize_llama_int4`` and
+    ``stack_llm_layers`` included, and ``flax_params`` gives the stacked
+    ``llm/layers`` leaves under ``scan_layers``; the factory still
+    builds VideoLLaMA and refuses an unknown model."""
+    monkeypatch.setattr(tcw, "init_random_", _sentinel_)
+    for quantization, scan in (("int4", False), ("int8", True), ("int4", True)):
+        jcfg, tcfg = configs(quantization, llm_weights=ckpt["llm"])
+        jcfg, tcfg = (c.replace(model=c.model.replace(llm=c.model.llm.replace(
+            int4_group_size=32, scan_layers=scan))) for c in (jcfg, tcfg))
+        with jax_init_filled():
+            theirs = flat(jcw.load_pretrained_params(
+                JModel(jcfg.model, audio_cfg=jcfg.data.audio), jcfg)["llm"])
+        model = tcw.load_pretrained_params(build_model(tcfg, "cpu"), tcfg)
+        assert_same_leaves({k[len("llm/"):]: v for k, v in flax_params(model).items()
+                            if k.startswith("llm/")}, theirs, skip=("lora_",))
+        weight = "layers/mlp/up_proj" if scan else "layer_0/mlp/up_proj"
+        assert f"{weight}/w_{quantization}" in theirs
+        if scan:
+            assert theirs[f"{weight}/w_{quantization}"].shape[0] == tcfg.model.llm.num_layers
     # VideoLLaMA (ROADMAP.md A.6) is ported: the factory builds it
     from mraudio_tpu_torch.models.videollama import VideoLLaMA
 

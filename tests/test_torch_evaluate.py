@@ -333,6 +333,17 @@ def test_cli_unported_flags_raise(flag, tmp_path, fabricated, monkeypatch):
 
         assert isinstance(_run_cli_capturing_model(monkeypatch, [*argv, flag]), VideoLLaMA)
         return
+    if flag == "--quant-encoders":
+        # ported (ROADMAP.md A.2): the encoders' kernels are stored int8 (the
+        # size threshold lowered to reach the tiny kernels), the LLM's not
+        from mraudio_tpu_torch.models import quant_tree
+
+        monkeypatch.setattr(quant_tree, "MIN_SIZE", 2048)
+        model = _run_cli_capturing_model(monkeypatch, [*argv, flag])
+        names = [n for n, _ in model.named_parameters() if n.endswith("kernel.original0")]
+        assert names and {n.split(".")[0] for n in names} <= set(model.ENCODER_PARAM_KEYS)
+        assert model.vit.blocks[0].mlp.fc1.kernel.dtype == torch.bfloat16
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md A."):
         cli_evaluate.main([*argv, flag])
 

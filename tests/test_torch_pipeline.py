@@ -148,13 +148,20 @@ def test_prefill_logits_bf16_within_tolerance(jax_params):
 @pytest.mark.parametrize("flag", ["saliency_head"])
 def test_unported_options_raise(flag):
     """``saliency_head`` was refused until the training slice ported it: the
-    model now builds the head; the LLM layouts still unported raise."""
+    model now builds the head; the LLM options refused until the
+    quantized slice (``scan_layers``, an int4 cache, int4 weights,
+    ``mlp_seq_chunk``) build too, and an unknown cache format raises."""
     cfg = tiny_model_config().replace(**{flag: True})
     model = XInstructBLIP(cfg, device="cpu")
     assert model.saliency_head.fc1.kernel.shape == (cfg.llm.hidden_size, 256)
-    for llm in (cfg.llm.replace(scan_layers=True), cfg.llm.replace(kv_quant="int4")):
-        with pytest.raises(NotImplementedError):
-            XInstructBLIP(cfg.replace(llm=llm), device="cpu")
+    for llm in (cfg.llm.replace(scan_layers=True), cfg.llm.replace(kv_quant="int4"),
+                cfg.llm.replace(quantization="int4", int4_group_size=32),
+                cfg.llm.replace(mlp_seq_chunk=16)):
+        built = XInstructBLIP(cfg.replace(llm=llm), device="cpu")
+        assert built.llm.cfg == llm
+    assert built.llm.layers[0].mlp.cfg.mlp_seq_chunk == 16
+    with pytest.raises(ValueError, match="kv_quant"):
+        XInstructBLIP(cfg.replace(llm=cfg.llm.replace(kv_quant="int2")), device="cpu")
 
 
 def test_cast_params_matches_jax_rule():

@@ -571,6 +571,16 @@ def test_cli_unported_flags_raise(ann_file, tmp_path, flag, fabricated, monkeypa
         got = model.llm.layers[0].attn.q_proj.lora_a
         assert torch.equal(got, trained.to(got.dtype))
         return
+    if flag == ["--quant-encoders"]:
+        # ported (ROADMAP.md A.2): the encoders' kernels are stored int8 (the
+        # size threshold lowered to reach the tiny kernels)
+        from mraudio_tpu_torch.models import quant_tree
+
+        monkeypatch.setattr(quant_tree, "MIN_SIZE", 2048)
+        model = _serve_capturing_model(monkeypatch, ann_file, tmp_path / "x.jsonl", *flag)
+        names = [n for n, _ in model.named_parameters() if n.endswith("kernel.original0")]
+        assert names and {n.split(".")[0] for n in names} <= set(model.ENCODER_PARAM_KEYS)
+        return
     if flag[0] not in ("--model-path", "--audio-encoder", "--params-store"):
         # VideoLLaMA is a known difference kept from the JAX package's serve CLI (C.3)
         item = r"C\.3" if flag == ["--model", "VideoLLaMA"] else r"A\.\d"

@@ -16,7 +16,8 @@ In the port alone: resuming from ``checkpoint_0`` and from a mid-epoch
 ``checkpoint_preempt`` gives the uninterrupted run's leaves and optimizer
 state bit for bit; the nan guard counts consecutive non-finite losses and
 aborts; the CLI runs end to end on the CPU and refuses what it does not
-port, naming the ROADMAP.md item."""
+port, naming the ROADMAP.md item, and trains with what it ports since
+(``--single-chip``, ``--quant-frozen``)."""
 
 import json
 
@@ -196,24 +197,50 @@ def test_finetune_cli_on_the_cpu(anns, tmp_path):
     (["--single-chip"], "A.2 and A.11"), (["--seq-shard"], "A.7"), (["--distributed"], "A.7"),
     (["--quant-frozen", "int8"], "A.2"), (["--model", "VideoLLaMA"], "A.6"),
 ])
-def test_unported_flags_raise(anns, tmp_path, flag, item):
+def test_unported_flags_raise(anns, tmp_path, flag, item, monkeypatch):
     """Flags whose machinery is not ported raise, naming their ROADMAP.md
-    item; ``--model VideoLLaMA`` (A.6, ported) trains the tiny model: one
-    epoch, its LoRA, connector and audio projector leaves in the
-    checkpoint."""
+    item (A.7).  The ones ported since (``--model VideoLLaMA``, A.6;
+    ``--single-chip`` and ``--quant-frozen int8``, A.2 and A.11) train the
+    tiny model for one epoch: VideoLLaMA's LoRA, connector and audio
+    projector leaves land in the checkpoint; ``--quant-frozen`` stores the
+    encoders' kernels int8 (the size threshold lowered to reach the tiny
+    kernels); ``--single-chip`` runs one encoder window with the encoders
+    off the device during its loss steps and writes the decoder's leaves
+    stacked (``scan_layers``)."""
     args = ["--model-size", "tiny", "--train-annotation-file", anns[0],
             "--val-annotation-file", anns[1], "--output-dir", str(tmp_path), "--device", "cpu",
             "--max-epoch", "1", "--batch-size", "2", "--video-source", "synthetic",
             "--num-workers", "1", *flag]
-    if flag == ["--model", "VideoLLaMA"]:
-        summary = finetune.main(args)
-        assert summary["best_epoch"] == 0 and 0 in summary["results"]
-        trained = load_checkpoint(str(tmp_path / "checkpoint_0"))["model"]
-        assert {k.split("/")[0] for k in trained} == {"llm", "connector", "audio_proj"}
-        assert len(_events(tmp_path, "train_step")) == 2
+    if item == "A.7":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+            finetune.main(args)
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        finetune.main(args)
+    from mraudio_tpu_torch.models import quant_tree
+
+    monkeypatch.setattr(quant_tree, "MIN_SIZE", 2048)
+    built = []
+    real_init = trainer_mod.Trainer.__init__
+
+    def capture(self, *a, **kw):
+        real_init(self, *a, **kw)
+        built.append(self)
+
+    monkeypatch.setattr(trainer_mod.Trainer, "__init__", capture)
+    summary = finetune.main(args)
+    assert summary["best_epoch"] == 0 and 0 in summary["results"]
+    trained = load_checkpoint(str(tmp_path / "checkpoint_0"))["model"]
+    assert len(_events(tmp_path, "train_step")) == 2
+    if flag == ["--model", "VideoLLaMA"]:
+        assert {k.split("/")[0] for k in trained} == {"llm", "connector", "audio_proj"}
+        return
+    names = [n for n, _ in built[0].model.named_parameters()]
+    assert any(n.startswith("vit.") and n.endswith("kernel.original0") for n in names)
+    if flag == ["--single-chip"]:
+        (window,) = _events(tmp_path, "window")
+        assert window["batches"] == 2 and not window["encoders_on_device_during_steps"]
+        assert built[0].cfg.train.encoder_window == 12
+        assert "llm/layers/attn/q_proj/lora_a" in trained
+        assert trained["llm/layers/attn/q_proj/lora_a"].shape[0] == 2
 
 
 @pytest.mark.parametrize("change,item", [
@@ -221,13 +248,23 @@ def test_unported_flags_raise(anns, tmp_path, flag, item):
     (dict(mesh=dict(data=2)), "A.7"),
 ])
 def test_unported_config_raises(anns, tmp_path, change, item):
+    """A mesh (A.7) is refused; ``encoder_window`` and ``upload_overlap``
+    (A.11), refused until they were ported, build a trainer: with a
+    window the encoders wait on the host."""
     _, cfg = configs(anns, tmp_path)
     if "train" in change:
         cfg = cfg.replace(train=cfg.train.replace(**change["train"]))
     else:
         cfg = cfg.replace(mesh=cfg.mesh.replace(**change["mesh"]))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        trainer_mod.Trainer(cfg, model=fresh_model(cfg), device="cpu")
+    if item == "A.7":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+            trainer_mod.Trainer(cfg, model=fresh_model(cfg), device="cpu")
+        return
+    trainer = trainer_mod.Trainer(cfg, model=fresh_model(cfg), device="cpu")
+    assert trainer._windowed == (cfg.train.encoder_window > 0)
+    assert trainer._overlap_ok == cfg.train.upload_overlap
+    if trainer._windowed:
+        assert not trainer.encoders_on_device()
 
 
 def test_best_checkpoint_follows_the_val_metric(anns, tmp_path):

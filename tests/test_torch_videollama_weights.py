@@ -13,8 +13,8 @@ JAX's trees, leaf for leaf; ``load_pretrained_params`` for VideoLLaMA
 into the port's modules what JAX's overlay puts into its tree, and the
 convert CLI writes JAX's store.  Both random inits are replaced by one
 sentinel fill (NaN, int8 -128), so an uncovered leaf shows: only the LoRA
-adapters are.  int4 weights and the ``scan_layers`` layout keep raising,
-naming ROADMAP.md A.2."""
+adapters are.  int4 weights and the ``scan_layers`` layout load as JAX's
+do."""
 
 import contextlib
 import logging
@@ -221,15 +221,24 @@ def test_convert_cli_store_equals_jax(ckpts, tmp_path, monkeypatch):
                                                  "quantization": "none", "scan_layers": False}
 
 
-def test_int4_and_scan_layers_still_raise_a2():
-    for change in (dict(quantization="int4"), dict(scan_layers=True)):
-        cfg = RunConfig(model_name="VideoLLaMA", model=tiny_model_config(),
-                        data=tiny_data_config(n_frms=4))
-        cfg = cfg.replace(model=cfg.model.replace(llm=cfg.model.llm.replace(**change)))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.2"):
-            build_model(cfg, "cpu")
-        model = build_model(cfg.replace(model=tiny_model_config()), "cpu")
-        model.cfg = model.cfg.replace(llm=model.cfg.llm.replace(**change))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.2"):
-            tcw.load_pretrained_params(model, cfg)
+def test_int4_and_scan_layers_still_raise_a2(ckpts, monkeypatch):
+    """int4 weights and the ``scan_layers`` layout, refused until they
+    were ported: for VideoLLaMA too, ``load_pretrained_params`` over the
+    merged checkpoint gives JAX's tree, the LLM quantized to int4 and
+    stacked; the configs' defaults still agree."""
+    monkeypatch.setattr(tcw, "init_random_", _sentinel_)
+    for change in (dict(quantization="int4"), dict(scan_layers=True),
+                   dict(quantization="int4", scan_layers=True)):
+        jcfg, tcfg = _configs("clip", llm_weights=ckpts["clip"])
+        jcfg, tcfg = (c.replace(model=c.model.replace(llm=c.model.llm.replace(
+            int4_group_size=32, **change))) for c in (jcfg, tcfg))
+        with jax_videollama_init_filled():
+            jm = JVideoLLaMA(j_config_from(jcfg.model, 4), audio_cfg=jcfg.data.audio)
+            theirs = flat(jcw.load_pretrained_params(jm, jcfg))
+        model = tcw.load_pretrained_params(build_model(tcfg, "cpu"), tcfg)
+        assert isinstance(model, VideoLLaMA)
+        assert_same_leaves(flax_params(model), theirs)
+        layer = "llm/layers" if change.get("scan_layers") else "llm/layer_0"
+        leaf = "w_int4" if change.get("quantization") else "kernel"
+        assert f"{layer}/mlp/up_proj/{leaf}" in theirs
     assert LlamaConfig().quantization == JLlamaConfig().quantization == "none"
