@@ -1,7 +1,8 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--out results.json]
-                          [--only kernels,models,evaluate,serve,converted,train,videollama,quant]
+                          [--only kernels,models,evaluate,serve,converted,train,videollama,quant,
+                                  parallel]
 
 Phases, each printing one JSON line with its seconds:
 
@@ -30,7 +31,10 @@ Phases, each printing one JSON line with its seconds:
    f32 computation and, with every row at one column, bit-identical to
    the ``q_offset`` route; and the default configuration's int8 decode
    projections (``decode_gemv="xla"``), whose rows must keep their bits
-   at 4x the rows;
+   at 4x the rows.  Then both kernels at the per-rank shapes of tensor
+   parallelism over 2 and 4 cards (flash over 16 and 8 heads; the GEMV
+   on each rank's column or row shard of one decoder layer, 11008/4 =
+   2752 included), under the same checks and timings;
 4. small reference: a narrow slice model (head_dim 128) generates on the
    card and on the CPU (plain versions) from the same weights; the
    prefill logits must agree, one-shot, in three 512-token prefill
@@ -158,8 +162,23 @@ Phases, each printing one JSON line with its seconds:
     ``encoder_window=2`` with ``upload_overlap`` against the per-batch
     split, bit for bit.
 
+20. parallel, one process per card over NCCL on every visible card up to
+    4: the evaluate CLI under ``torch.distributed.run`` on a cards x 1
+    mesh (one card: a 1 x 1 mesh through a real NCCL group) at full
+    width, 8 decoder layers, in the slice configuration: both kernels
+    launched on every rank, the JSONL equal to the same CLI's without a
+    mesh.  With 4 cards also: model = 4 generate at full width and depth
+    on the 3 clips against the same on one card (the first-step logits
+    within ``TP_LOGIT_REL_L2``, the tokens compared and the first
+    differing position reported; with ``seq_shard`` too), grammar
+    decoding at ``spec_width`` 4 and 1 giving identical tokens on the
+    model axis, and the finetune CLI on a 2 x 2 mesh (8 layers, 4
+    micro-steps at a global batch of 2) against one card's losses; per-
+    rank peak memory and seconds.
+
 ``--only`` runs the named groups of phases (kernels: 3; models: 4-9;
 evaluate: 10-11; serve: 12-15; converted: 16; train: 17; videollama: 18; quant: 19;
+parallel: 20;
 spec_width: the probe of
 the serving engine at ``spec_width`` 20 against 1, ROADMAP C.2, which a
 full run leaves out) after the build, for debugging; such a run prints
@@ -396,6 +415,20 @@ def check_flash(dev, b, h, s, kv, d, gen, holes=XIB_FLASH_MASK, controls=XIB_FLA
                 library_ms=library_ms, bound_ms=bms, bound_by=by,
                 shape=dict(b=b, h=h, s=s, kv=kv, d=d, kv_heads=kvh), flops=flops,
                 bytes=nbytes)
+
+
+# tensor-parallel widths whose per-rank kernel shapes phase 3 checks
+TP_WIDTHS = (2, 4)
+
+
+def tp_gemv_shapes(m: int) -> list:
+    """(K, N) of one decoder layer's int8 GEMVs on one of ``m`` model
+    ranks, in ``layer()``'s order: q, k, v (columns: 4096 x 4096/m), o
+    (rows: 4096/m x 4096), gate, up (columns: 4096 x 11008/m), down
+    (rows: 11008/m x 4096).  The route is decided on the whole widths, so
+    11008/4 = 2752, which the JAX package's tiling rule would refuse,
+    still runs the kernel (K and N multiples of 8, N of 16 for int8)."""
+    return [(4096, 4096 // m), (4096 // m, 4096), (4096, 11008 // m), (11008 // m, 4096)]
 
 
 def _gemv_inputs(b, kdim, n, int8, gen, copies=1):
@@ -3018,13 +3051,298 @@ def window_identities(dev) -> dict:
     return dict(result, bit_identical=True)
 
 
+# --------------------------------------------------------------------------
+# Phase 20: parallelism — the mesh over NCCL, one process per card
+# --------------------------------------------------------------------------
+
+# the evaluate CLI on a mesh: the serving depth at full width, 2 clips
+PARALLEL_LAYERS = SERVE_LAYERS
+PARALLEL_CLIPS = 2
+# model = 4 against one card at full width and depth (bf16): the first-step
+# logits within this relative L2 (sums in another order, as a route
+# change: 0.01-0.05 between the slice and default routes, PR 8)
+TP_LOGIT_REL_L2 = 0.10
+# data = 2 x model = 2 finetune against one card at the same global batch
+TP_TRAIN_LOSS_RTOL = TRAIN_LOSS_RTOL
+
+_PARALLEL_RUNNER = r"""
+import json, os, sys, time
+from pathlib import Path
+import torch
+import chip_smoke
+
+mode, out = sys.argv[1], Path(sys.argv[2])
+rank, world = int(os.environ.get("RANK", 0)), int(os.environ.get("WORLD_SIZE", 1))
+cuda = "--device" not in sys.argv
+tag = f"{mode}_{world}_{rank}"
+
+def peak():
+    return torch.cuda.max_memory_allocated() if cuda else 0
+
+def save(obj):
+    (out / f"{tag}.json").write_text(json.dumps(obj))
+
+chip_smoke.set_launches(0)
+t = time.perf_counter()
+if mode in ("evaluate", "finetune"):
+    from mraudio_tpu_torch.cli import evaluate, finetune
+    (evaluate if mode == "evaluate" else finetune).main(sys.argv[3:])
+    if cuda:
+        torch.cuda.synchronize()
+    save(dict(rank=rank, world=world, launches=chip_smoke.read_launches(),
+              peak_mem_bytes=peak(), wall_s=time.perf_counter() - t))
+else:   # generate [--device cpu]: the slice model over a 1 x world mesh
+    save(chip_smoke.tp_generate(out, rank, world, cuda))
+"""
+
+
+def tp_generate(out: Path, rank: int, world: int, cuda: bool) -> dict:
+    """In one process of a ``world``-card launch (or alone): the slice
+    model at full width and depth, seeded, with its LoRA B non-zero,
+    sliced over a 1 x ``world`` mesh; greedy on 3 synthetic QVH clips,
+    then with ``seq_shard``, then grammar decoding at ``spec_width`` 4 and
+    1.  Rank 0 saves the tokens and the first-step logits; every rank
+    returns its launches, seconds and peak memory.  Without a card: the
+    tiny f32 model on gloo (the rehearsal on the CPU)."""
+    from mraudio_tpu_torch import parallel
+    from mraudio_tpu_torch.config import (DATASET_MAX_AUDIO_SECONDS, DATASET_N_FRMS,
+                                          AudioFrontendConfig, MeshConfig, full_model_config,
+                                          slice_model_config, tiny_data_config,
+                                          tiny_model_config)
+    from mraudio_tpu_torch.device import init_distributed
+
+    dev = init_distributed("cuda" if cuda else "cpu") if world > 1 else torch.device(
+        "cuda" if cuda else "cpu")
+    if cuda:
+        cfg = slice_model_config(full_model_config())
+        audio_cfg = AudioFrontendConfig(max_audio_seconds=DATASET_MAX_AUDIO_SECONDS["QVH"])
+        n_frms = DATASET_N_FRMS["QVH"]
+    else:
+        tiny = tiny_model_config()
+        cfg = slice_model_config(tiny.replace(llm=tiny.llm.replace(dtype="float32")))
+        audio_cfg, n_frms = tiny_data_config().audio, 4
+    a = audio_cfg
+    seconds = (a.max_audio_seconds if cuda else
+               (a.hop_length * (n_frms * a.mel_frames_per_chunk - 1) + a.win_length)
+               / a.sampling_rate)
+    t = time.perf_counter()
+    model = build_model(cfg, audio_cfg, dev, 0)
+    seed_lora_b_(model, 0)
+    if world > 1:
+        parallel.shard_module_(model, parallel.make_mesh(MeshConfig(data=1, model=world)))
+    if cuda:
+        torch.cuda.synchronize()
+    res = dict(rank=rank, world=world, init_s=time.perf_counter() - t)
+    batch = qvh_batch(3, n_frms, cfg.vit.image_size, seconds, a.sampling_rate, seed=1)
+    saved = {}
+    for name, llm, asm in (("greedy", {}, {}), ("seq_shard", dict(seq_shard=True), {}),
+                           ("grammar4", {}, dict(constrained_decoding=True, spec_width=4)),
+                           ("grammar1", {}, dict(constrained_decoding=True, spec_width=1))):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        set_launches(0)
+        with llm_settings(model, **llm), model_settings(model, **asm):
+            t = time.perf_counter()
+            tokens, _ = model.generate_submit(batch=batch, stats=stats)
+            tokens = tokens.cpu()
+            wall = time.perf_counter() - t
+        res[name] = dict(launches=read_launches(), wall_s=wall, prefill_s=stats["prefill_s"],
+                         decode_s=stats["decode_s"], decode_steps=stats["decode_steps"],
+                         peak_mem_bytes=torch.cuda.max_memory_allocated() if cuda else 0)
+        saved[name] = dict(tokens=tokens,
+                           logits=stats["prefill_logits"][:, :cfg.llm.vocab_size].float().cpu())
+    if rank == 0:
+        torch.save(saved, out / f"generate_{world}.pt")
+    del model
+    if world > 1:
+        from mraudio_tpu_torch.device import shutdown_distributed
+
+        shutdown_distributed()
+    return res
+
+
+def _launch(mode: str, out: Path, nproc: int, args: list, timeout: int) -> list:
+    """The parallel runner in ``nproc`` processes under
+    ``torch.distributed.run`` (or one plain process for ``nproc=0``);
+    returns each rank's readings."""
+    root = Path(__file__).resolve().parent
+    runner = out / "runner.py"
+    runner.write_text(_PARALLEL_RUNNER)
+    launcher = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc-per-node", str(nproc)] if nproc else [sys.executable])
+    env = dict(os.environ, PYTHONPATH=str(root) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t = time.perf_counter()
+    proc = subprocess.run([*launcher, str(runner), mode, str(out), *args], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"parallel {mode} on {nproc or 1} process(es) failed "
+                             f"({proc.returncode}): {proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    world = max(nproc, 1)
+    ranks = [json.loads((out / f"{mode}_{world}_{r}.json").read_text()) for r in range(world)]
+    for r in ranks:
+        r["launch_wall_s"] = time.perf_counter() - t
+    return ranks
+
+
+def _parallel_config(out: Path, name: str, data: int, model: int, **llm) -> Path:
+    from mraudio_tpu_torch.config import (DataConfig, MeshConfig, RunConfig, full_model_config,
+                                          slice_model_config)
+
+    cfg = slice_model_config(full_model_config())
+    path = out / f"{name}.json"
+    path.write_text(json.dumps(RunConfig(
+        model=cfg.replace(llm=cfg.llm.replace(**llm)), data=DataConfig.for_dataset("QVH"),
+        mesh=MeshConfig(data=data, model=model)).to_dict()))
+    return path
+
+
+def parallel_evaluate(out: Path, cards: int) -> dict:
+    """The evaluate CLI under ``torch.distributed.run`` over NCCL on
+    ``cards`` cards (a ``cards`` x 1 mesh: a 1 x 1 mesh through a real
+    NCCL group on one card), full width at the serving depth in the slice
+    configuration, ``PARALLEL_CLIPS`` clips x ``cards`` at a global batch
+    of ``cards``: every rank must launch flash and the GEMV, and the
+    JSONL must equal the same CLI's without a mesh at batch 1 (each rank
+    computes one row, as one card does at batch 1)."""
+    clips = PARALLEL_CLIPS * cards
+    gt = out / "annotations.jsonl"
+    gt.write_text("".join(json.dumps(a) + "\n" for a in serve_annotations(clips)))
+    common = ["--annotation-file", str(gt), "--video-source", "synthetic", "--num-workers", "1"]
+    mesh_cfg = _parallel_config(out, "mesh", cards, 1, num_layers=PARALLEL_LAYERS)
+    one_cfg = _parallel_config(out, "one", 1, 1, num_layers=PARALLEL_LAYERS)
+    ranks = _launch("evaluate", out, cards, [*common, "--config", str(mesh_cfg), "--batch-size",
+                                             str(cards), "--output-file",
+                                             str(out / "mesh.jsonl")], 300)
+    alone = _launch("evaluate", out, 0, [*common, "--config", str(one_cfg), "--batch-size", "1",
+                                         "--output-file", str(out / "one.jsonl")], 300)[0]
+    result = dict(cards=cards, clips=clips, layers=PARALLEL_LAYERS, ranks=ranks, one_card=alone)
+    emit({"phase": "parallel_evaluate_readings", **result})
+    for r in ranks:
+        if not (r["launches"]["flash_attention"] > 0 and r["launches"]["decode_gemv"] > 0):
+            raise AssertionError(f"parallel evaluate: rank {r['rank']} launched {r['launches']}")
+    mesh_text, one_text = (out / "mesh.jsonl").read_text(), (out / "one.jsonl").read_text()
+    if mesh_text != one_text or len(mesh_text.splitlines()) != clips:
+        raise AssertionError("parallel evaluate: the mesh JSONL differs from one card's")
+    return dict(result, jsonl_equal=True)
+
+
+def parallel_generate(out: Path, cards: int = 4) -> dict:
+    """Model = ``cards`` generate at full width and depth (``tp_generate``)
+    against the same on one card: tokens compared (the first differing
+    position reported), the first-step logits within
+    ``TP_LOGIT_REL_L2``; grammar decoding at ``spec_width`` 4 and 1 must
+    give identical tokens under the model axis, with and without
+    ``seq_shard`` on greedy."""
+    ranks = _launch("generate", out, cards, [], 400)
+    alone = _launch("generate", out, 0, [], 400)[0]
+    mesh = torch.load(out / f"generate_{cards}.pt", weights_only=True)
+    one = torch.load(out / "generate_1.pt", weights_only=True)
+
+    def first_diff(a, b):
+        rows = []
+        for ra, rb in zip(a.tolist(), b.tolist()):
+            rows.append(next((i for i, (x, y) in enumerate(zip(ra, rb)) if x != y), None))
+        return rows
+
+    cmp = {}
+    for name in ("greedy", "seq_shard", "grammar4"):
+        a, b = mesh[name], one["grammar4" if name == "grammar4" else "greedy"]
+        rel = float((a["logits"] - b["logits"]).norm() / b["logits"].norm())
+        cmp[name] = dict(tokens_equal=bool(torch.equal(a["tokens"], b["tokens"])),
+                         first_differing_position=first_diff(a["tokens"], b["tokens"]),
+                         logits_rel_l2=rel,
+                         logits_max_abs_diff=float((a["logits"] - b["logits"]).abs().max()),
+                         argmax_equal=bool(torch.equal(a["logits"].argmax(-1),
+                                                       b["logits"].argmax(-1))))
+    result = dict(cards=cards, ranks=ranks, one_card=alone, vs_one_card=cmp)
+    emit({"phase": "parallel_generate_readings", **result})
+    for name, c in cmp.items():
+        if not c["logits_rel_l2"] <= TP_LOGIT_REL_L2:
+            raise AssertionError(f"parallel generate {name}: logits rel L2 {c['logits_rel_l2']}")
+    if not torch.equal(mesh["grammar4"]["tokens"], mesh["grammar1"]["tokens"]):
+        raise AssertionError("parallel generate: grammar spec_width 4 and 1 tokens differ on "
+                             "the model axis")
+    layers = ranks[0]["greedy"]["launches"]["flash_attention"]
+    for r in ranks:
+        for name in ("greedy", "seq_shard", "grammar4", "grammar1"):
+            if not (r[name]["launches"]["flash_attention"] == layers > 0
+                    and r[name]["launches"]["decode_gemv"] > 0):
+                raise AssertionError(f"parallel generate {name}: rank {r['rank']} launched "
+                                     f"{r[name]['launches']}")
+    return result
+
+
+def parallel_finetune(out: Path, cards: int = 4) -> dict:
+    """The finetune CLI at full width (default configuration, the depth
+    cut to ``PARALLEL_LAYERS``) under ``torch.distributed.run`` on a
+    data = 2 x model = 2 mesh, 4 micro-steps at a global batch of 2,
+    against the same CLI on one card: losses within
+    ``TP_TRAIN_LOSS_RTOL``; per-rank peak memory and wall time."""
+    from mraudio_tpu_torch.config import (DataConfig, MeshConfig, RunConfig, full_model_config)
+
+    train_ann, val_ann = out / "train.jsonl", out / "val.jsonl"
+    train_ann.write_text("".join(json.dumps(a) + "\n" for a in train_annotations(8)))
+    val_ann.write_text("".join(json.dumps(a) + "\n" for a in train_annotations(1, 8)))
+    model = full_model_config()
+    model = model.replace(vit=model.vit.replace(grad_checkpoint=True),
+                          llm=model.llm.replace(grad_checkpoint=True,
+                                                num_layers=PARALLEL_LAYERS))
+    runs = {}
+    for name, mesh, nproc in (("mesh", MeshConfig(data=2, model=2), cards),
+                              ("one", MeshConfig(), 0)):
+        config = out / f"train_{name}.json"
+        config.write_text(json.dumps(RunConfig(model=model, data=DataConfig.for_dataset("QVH"),
+                                               mesh=mesh).to_dict()))
+        ranks = _launch("finetune", out, nproc, [
+            "--config", str(config), "--video-source", "synthetic", "--batch-size", "2",
+            "--max-epoch", "1", "--train-annotation-file", str(train_ann),
+            "--val-annotation-file", str(val_ann), "--output-dir", str(out / name),
+            "--num-workers", "1"], 400)
+        events = [json.loads(ln) for ln in (out / name / "train.jsonl").read_text().splitlines()]
+        runs[name] = dict(ranks=ranks, losses=[e["loss"] for e in events
+                                               if e["event"] == "train_step"])
+    result = dict(cards=cards, layers=PARALLEL_LAYERS, mesh_2x2=runs["mesh"],
+                  one_card=runs["one"])
+    emit({"phase": "parallel_finetune_readings", **result})
+    a, b = runs["mesh"]["losses"], runs["one"]["losses"]
+    if len(a) != 4 or len(b) != 4 or not all(
+            math.isfinite(x) and abs(x - y) <= TP_TRAIN_LOSS_RTOL * abs(y) for x, y in zip(a, b)):
+        raise AssertionError(f"parallel finetune: losses {a} against one card's {b}")
+    return result
+
+
+def parallel_group() -> dict:
+    """Phase 20 on every visible card up to 4: the evaluate CLI over NCCL;
+    with 4 cards also the model = 4 generate and the 2 x 2 finetune."""
+    cards = min(torch.cuda.device_count(), 4)
+    root = Path(__file__).resolve().parent / "build" / "smoke_parallel"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    emit({"phase": "parallel_cards", "cards": cards,
+          "runs": ["evaluate"] + (["generate", "finetune"] if cards >= 4 else [])})
+    out = dict(cards=cards)
+    t = time.perf_counter()
+    out["evaluate"] = parallel_evaluate(root, cards)
+    emit({"phase": "parallel_evaluate", "seconds": time.perf_counter() - t})
+    if cards >= 4:
+        t = time.perf_counter()
+        out["generate"] = parallel_generate(root)
+        emit({"phase": "parallel_generate", "seconds": time.perf_counter() - t})
+        t = time.perf_counter()
+        out["finetune"] = parallel_finetune(root)
+        emit({"phase": "parallel_finetune", "seconds": time.perf_counter() - t})
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="also write every phase's result to this JSON file")
     ap.add_argument("--only", default="",
                     help="comma-separated phases to run (kernels, models, evaluate, serve, "
-                         "converted, train, videollama, quant, spec_width); a partial run "
-                         "prints no summary and no ok line")
+                         "converted, train, videollama, quant, parallel, spec_width); a partial "
+                         "run prints no summary and no ok line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3060,8 +3378,10 @@ def main() -> int:
     b, h, d, s, kv = 3, 32, 128, 5353, 5353 + 64 + 16
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def layer(rs):      # one decoder layer's GEMVs: q, k, v, o (4096²), gate, up, down
-        per_layer = [rs[0]] * 4 + [rs[1]] * 2 + [rs[2]]
+    def layer(rs, counts=(4, 2, 1)):
+        """One decoder layer's GEMVs (q, k, v, o, gate, up, down) from the
+        readings ``rs`` of its distinct shapes, each taken ``counts`` times."""
+        per_layer = [r for r, c in zip(rs, counts) for _ in range(c)]
         return {key: sum(r[key] for r in per_layer)
                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
 
@@ -3102,6 +3422,21 @@ def main() -> int:
         xla_proj = check_xla_projections(dev, b, gen)
         emit({"phase": "plain_op", **xla_proj})
 
+        # the per-rank shapes of tensor parallelism over 2 and 4 cards: flash
+        # on each rank's heads, the GEMV on each rank's column or row shard
+        tp = {}
+        for m in TP_WIDTHS:
+            tp_flash = check_flash(dev, b, h // m, s, kv, d, gen)
+            emit({"phase": "kernel", "model_axis": m, **tp_flash})
+            tp_gemv = []
+            for kdim, n in tp_gemv_shapes(m):
+                r = check_gemv(dev, b, kdim, n, True, gen, by_cluster=False)
+                emit({"phase": "kernel", "model_axis": m, **r})
+                tp_gemv.append(r)
+            tp[m] = dict(flash=tp_flash, gemv=tp_gemv, gemv_layer=layer(tp_gemv, (3, 1, 2, 1)))
+            emit({"phase": "kernel", "name": f"decode_gemv, one decoder layer at model={m}",
+                  "b3": tp[m]["gemv_layer"]})
+
         gemv_layer = layer(gemvs)
         gemv_layer_m = {m: layer(rs) for m, rs in gemvs_m.items()}
         emit({"phase": "kernel", "name": "decode_gemv, one decoder layer",
@@ -3110,7 +3445,7 @@ def main() -> int:
                                   gemv_m=gemvs_m, gemv_rows=gemv_rows, gemv_rows16=gemv_rows16,
                                   gemv_other=gemv_other, per_row_attention=per_row,
                                   chunked_attention=chunked, xla_projections=xla_proj,
-                                  gemv_layer=gemv_layer, gemv_layer_m=gemv_layer_m)
+                                  gemv_layer=gemv_layer, gemv_layer_m=gemv_layer_m, tp=tp)
         emit({"phase": "kernels", "seconds": time.perf_counter() - t})
 
     if on("models"):
@@ -3273,6 +3608,13 @@ def main() -> int:
             gc.collect()
             torch.cuda.empty_cache()
 
+    if on("parallel"):
+        t = time.perf_counter()
+        results["parallel"] = parallel_group()
+        emit({"phase": "parallel", "seconds": time.perf_counter() - t})
+        gc.collect()
+        torch.cuda.empty_cache()
+
     if args.out:
         with open(args.out, "w") as f:
             json.dump({**results, "phase_seconds": PHASE_SECONDS}, f, indent=1, default=str)
@@ -3309,9 +3651,13 @@ def main() -> int:
                                "quant_int4_evaluate": results["q_evaluate"]["launches"][name],
                                "quant_w8a8": results["q_w8a8"]["launches"][name],
                                "quant_serve": 0, "single_chip_train":
-                                   results["single_chip"]["launches"][name]}
+                                   results["single_chip"]["launches"][name],
+                               "parallel_evaluate": sum(
+                                   r["launches"][name]
+                                   for r in results["parallel"]["evaluate"]["ranks"])}
                         for name in ("flash_attention", "decode_gemv")}
     vl = results["vl_kernels"]
+    tp = results["kernels"]["tp"]
 
     def at(r):      # a kernel's readings at one of the VideoLLaMA shapes
         return {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")}
@@ -3326,7 +3672,8 @@ def main() -> int:
              bound_ms=flash["bound_ms"], bound_by=flash["bound_by"],
              library_ms=flash["library_ms"],
              videollama={"b4_h32_s1148": at(vl["flash_videollama"]),
-                         "av21_b1_h28_kv4_s11123": at(vl["flash_av21"])}),
+                         "av21_b1_h28_kv4_s11123": at(vl["flash_av21"])},
+             per_rank={f"model{m}_b3_h{h // m}_s{s}": at(tp[m]["flash"]) for m in TP_WIDTHS}),
         dict(name="decode_gemv", route="cuda",
              source="mraudio_tpu_torch/csrc/decode_gemv.cu",
              replaces="mraudio_tpu/ops/gemv.py:109",
@@ -3338,7 +3685,10 @@ def main() -> int:
              **{f"b{m}": v for m, v in gemv_layer_m.items()},
              videollama={"av21_qwen2_layer_bf16_b1": vl["gemv_layer"],
                          "av21_lm_head_bf16_b1": vl["gemv_lm_head"],
-                         "max_abs_err": max(r["max_abs_err"] for r in vl["gemv"])}),
+                         "max_abs_err": max(r["max_abs_err"] for r in vl["gemv"])},
+             per_rank={f"model{m}_layer_int8_b3": dict(
+                 tp[m]["gemv_layer"], max_abs_err=max(r["max_abs_err"] for r in tp[m]["gemv"]))
+                 for m in TP_WIDTHS}),
     ]
     print(card, flush=True)
     emit({"kernels": kernels})

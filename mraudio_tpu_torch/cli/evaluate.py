@@ -22,20 +22,25 @@ constrained decoding with ``spec_width=4``).  ``--quant-encoders`` stores
 the frozen encoders' large kernels int8 (``models/quant_tree.py``); the
 int4 weights and cache, W8A8, ``scan_layers`` and ``mlp_seq_chunk`` come
 from a ``--config``'s ``model.llm`` (``quantization: int4``, ``kv_quant:
-int4``, ``int8_dot``, ...).  Flags whose machinery is not ported raise
-``NotImplementedError`` naming the ROADMAP.md item that brings it, and
-so does a ``--config`` that names a tokenizer.
+int4``, ``int8_dot``, ...).  A ``--config`` that names a tokenizer
+raises ``NotImplementedError`` naming the ROADMAP.md item.
+
+A ``--config`` with a mesh (``mesh: {data: D, model: M}``) runs under a
+distributed launch of D x M processes, one per card (or per CPU process
+with ``--device cpu``, over gloo):
+
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m mraudio_tpu_torch.cli.evaluate --config mesh.yaml ...
+
+``--batch-size`` is the global batch (D must divide it); rank 0 writes
+the output.  ``--seq-shard`` splits the prefill's residual stream along
+S over the model ranks (``LlamaConfig.seq_shard``).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
-
-# flag → the ROADMAP.md item that ports its machinery
-_UNPORTED = {
-    "seq_shard": "A.7: parallelism",
-}
 
 
 def build_config(args):
@@ -119,7 +124,8 @@ def main(argv=None) -> dict:
                         help="store the frozen encoders' large kernels int8, dequantized "
                              "where read (an approximation: the reference keeps them fp16)")
     parser.add_argument("--seq-shard", action="store_true",
-                        help="sequence parallelism for the prefill")
+                        help="sequence parallelism on a model axis > 1 (LlamaConfig.seq_shard; "
+                             "predictions identical)")
     parser.add_argument("--fast", action="store_true",
                         help="the stacked-throughput preset: temporal-residual ViT (an "
                              "approximation), yuv420 wire, grammar-constrained decoding")
@@ -128,15 +134,12 @@ def main(argv=None) -> dict:
                              "versions of the kernels)")
     args = parser.parse_args(argv)
 
-    for flag, item in _UNPORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP.md {item})")
-
     logging.basicConfig(level=logging.INFO)
     cfg = build_config(args)
     if args.quant_encoders:
         cfg = cfg.replace(quant_encoders=True)
+    if args.seq_shard:
+        cfg = cfg.replace(model=cfg.model.replace(llm=cfg.model.llm.replace(seq_shard=True)))
     if args.fast:
         from mraudio_tpu_torch.config import apply_fast_preset
 
@@ -146,18 +149,25 @@ def main(argv=None) -> dict:
     from mraudio_tpu_torch.infer.evaluate import refuse_unported, run_inference
     from mraudio_tpu_torch.models.factory import build_model
 
+    from mraudio_tpu_torch.device import is_main_process, launched_distributed, process_group
+
     refuse_unported(cfg)
-    # --model dispatch, as the reference's evaluate.py:27-31
-    model = resolve_params(build_model(cfg, args.device), cfg, args.params_store)
-    if args.checkpoint:
-        load_trained(model, args.checkpoint)
-    result = run_inference(
-        cfg, model=model, output_file=args.output_file, batch_size=args.batch_size,
-        num_workers=args.num_workers, profile_dir=args.profile_dir or None,
-        batch_fallback=not args.no_batch_fallback, device=args.device,
-    )
-    print(f"wrote {len(result['records'])} predictions to {args.output_file} "
-          f"({result['clips_per_sec']:.3f} clips/sec)")
+    needed = cfg.mesh.num_devices > 1 or launched_distributed()
+    with process_group(args.device, needed=needed) as device:
+        if not is_main_process():
+            logging.getLogger().setLevel(logging.WARNING)
+        # --model dispatch, as the reference's evaluate.py:27-31
+        model = resolve_params(build_model(cfg, device), cfg, args.params_store)
+        if args.checkpoint:
+            load_trained(model, args.checkpoint)
+        result = run_inference(
+            cfg, model=model, output_file=args.output_file, batch_size=args.batch_size,
+            num_workers=args.num_workers, profile_dir=args.profile_dir or None,
+            batch_fallback=not args.no_batch_fallback, device=device,
+        )
+        if is_main_process():
+            print(f"wrote {len(result['records'])} predictions to {args.output_file} "
+                  f"({result['clips_per_sec']:.3f} clips/sec)")
     return result
 
 

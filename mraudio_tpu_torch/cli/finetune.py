@@ -24,21 +24,25 @@ applies the JAX package's single-chip memory stack as it sets it
 (``mraudio_tpu/cli/finetune.py:141-160``): ViT and block remat,
 ``scan_layers``, ``attention_unroll_train`` (accepted, no effect here),
 ``quant_frozen="int8"``, the split encode step and
-``encoder_window=max(train.encoder_window, 12)``.  Flags whose machinery
-is not ported raise ``NotImplementedError`` naming the ROADMAP.md item
-that brings it.
+``encoder_window=max(train.encoder_window, 12)``.
+
+``--distributed`` (or a ``--config`` whose mesh has more than one
+device) joins the process group of a distributed launch, one process per
+card (NCCL), or per CPU process with ``--device cpu`` (gloo):
+
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m mraudio_tpu_torch.cli.finetune --config mesh.yaml ...
+
+The config's mesh (``mesh: {data: D, model: M}``) must have as many
+devices as the launch has processes; without one, every process is a
+data rank.  ``--batch-size`` is the global batch.  ``--seq-shard``
+splits the residual stream along S over the model ranks.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
-
-# flag → the ROADMAP.md item that ports its machinery
-_UNPORTED = {
-    "seq_shard": "A.7: parallelism",
-    "distributed": "A.7: parallelism",
-}
 
 
 def build_config(args):
@@ -127,34 +131,45 @@ def main(argv=None) -> dict:
                              "at least 12 batches (its attention_unroll_train is accepted and "
                              "has no effect here)")
     parser.add_argument("--seq-shard", action="store_true",
-                        help="sequence parallelism on a model mesh (not ported)")
+                        help="sequence parallelism on a model axis > 1 (LlamaConfig.seq_shard)")
     parser.add_argument("--distributed", action="store_true",
-                        help="multi-host launch (not ported)")
+                        help="join the process group of a torch.distributed.run launch (one "
+                             "process per device); without a mesh in the config every process "
+                             "is a data rank")
     parser.add_argument("--device", default="cuda",
                         help="torch device to train on (default cuda; cpu runs the plain "
                              "versions of the kernels)")
     args = parser.parse_args(argv)
 
-    for flag, item in _UNPORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP.md {item})")
-
     logging.basicConfig(level=logging.INFO)
     cfg = build_config(args)
+    if args.seq_shard:
+        cfg = cfg.replace(model=cfg.model.replace(llm=cfg.model.llm.replace(seq_shard=True)))
     if args.single_chip:
         cfg = apply_single_chip(cfg)
 
     from mraudio_tpu_torch.cli.convert import resolve_params
+    from mraudio_tpu_torch.config import MeshConfig
+    from mraudio_tpu_torch.device import is_main_process, launched_distributed, process_group
     from mraudio_tpu_torch.models.factory import build_model
     from mraudio_tpu_torch.train.trainer import Trainer, refuse_unported
 
     refuse_unported(cfg)
-    # --model dispatch, as the reference's utils/trainer.py:50-56
-    model = resolve_params(build_model(cfg, args.device), cfg, args.params_store)
-    trainer = Trainer(cfg, model=model, optimizer=args.optimizer, device=args.device)
-    summary = trainer.train()
-    print(f"best epoch {summary['best_epoch']}: MR-full-R1-avg {summary['best_metric']}")
+    needed = args.distributed or cfg.mesh.num_devices > 1 or launched_distributed()
+    with process_group(args.device, needed=needed) as device:
+        if args.distributed and cfg.mesh.num_devices == 1:
+            import torch.distributed as dist
+
+            cfg = cfg.replace(mesh=MeshConfig(data=dist.get_world_size(), model=1))
+        if not is_main_process():
+            logging.getLogger().setLevel(logging.WARNING)
+        # --model dispatch, as the reference's utils/trainer.py:50-56
+        model = resolve_params(build_model(cfg, device), cfg, args.params_store)
+        trainer = Trainer(cfg, model=model, optimizer=args.optimizer, device=device)
+        summary = trainer.train()
+        if is_main_process():
+            print(f"best epoch {summary['best_epoch']}: MR-full-R1-avg "
+                  f"{summary['best_metric']}")
     return summary
 
 

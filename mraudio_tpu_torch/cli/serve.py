@@ -506,7 +506,7 @@ def main(argv=None):
     from mraudio_tpu_torch.cli.convert import resolve_params
     from mraudio_tpu_torch.cli.evaluate import build_config, load_trained
     from mraudio_tpu_torch.data.dataset import MRDataset
-    from mraudio_tpu_torch.infer.evaluate import refuse_unported
+    from mraudio_tpu_torch.infer.evaluate import refuse_unported, refuse_unported_mesh
     from mraudio_tpu_torch.models.casting import cast_params_for_inference
     from mraudio_tpu_torch.models.factory import build_model
 
@@ -524,6 +524,7 @@ def main(argv=None):
         cfg = cfg.replace(model=cfg.model.replace(
             llm=cfg.model.llm.replace(kv_keep=args.kv_keep)))
     refuse_unported(cfg)
+    refuse_unported_mesh(cfg, "the serve CLI")
     inline = args.encode_mode == "inline"
     if args.arrival_rate and inline:
         raise SystemExit("--arrival-rate is upfront-encoded load mode; use --encode-mode upfront")

@@ -191,6 +191,10 @@ class LlamaConfig(_ConfigBase):
     # stored stacked under llm/layers at every boundary (converters, param
     # store, checkpoints); the modules and the cache stay per layer.
     scan_layers: bool = False
+    # Megatron sequence parallelism on a model axis > 1: the residual
+    # stream between the tensor-parallel matmuls is split along S over the
+    # model ranks (the last shard zero-padded when S does not tile); a
+    # no-op without a model axis and for fewer than 2 tokens per rank.
     seq_shard: bool = False
 
     @property
@@ -320,7 +324,12 @@ class DataConfig(_ConfigBase):
 
 @dataclass(frozen=True)
 class MeshConfig(_ConfigBase):
-    """Device mesh axes; the port runs one device (data = model = 1)."""
+    """Device mesh axes.  Data parallelism over ``data``; Megatron tensor
+    parallelism of the LLM over ``model`` (heads, MLP width and vocab
+    sharded), with the frozen encoders ZeRO-3-sharded over ``data``.  The
+    reference's only strategy is DP via DDP.  One process per device: a
+    mesh of ``num_devices`` > 1 runs under a distributed launch of exactly
+    that many processes (``parallel/mesh.py``)."""
 
     data: int = 1
     model: int = 1

@@ -216,7 +216,13 @@ class BatchLoader:
         drop_last: bool = False,
         shard_index: int = 0,
         shard_count: int = 1,
+        rows: tuple | None = None,
     ):
+        """``rows`` ``(first, count)``: yield rows ``[first, first + count)``
+        of each batch of ``batch_size`` (a data rank's part of the global
+        batch), padded to ``count``; a part past the data's end comes as
+        ``count`` padding rows, so every data rank yields the same number
+        of batches."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -226,6 +232,7 @@ class BatchLoader:
         self.drop_last = drop_last
         self.shard_index = shard_index
         self.shard_count = shard_count
+        self.rows = rows
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -257,8 +264,14 @@ class BatchLoader:
 
         def build(start: int) -> Batch:
             idxs = order[start : start + self.batch_size]
-            samples = [self.dataset.get(int(i)) for i in idxs]
-            return collate(samples, self.batch_size)
+            if self.rows is None:
+                return collate([self.dataset.get(int(i)) for i in idxs], self.batch_size)
+            first, count = self.rows
+            part = idxs[first : first + count]
+            batch = collate([self.dataset.get(int(i)) for i in (part if len(part) else idxs[:1])],
+                            count)
+            batch.valid[len(part):] = False
+            return batch
 
         with concurrent.futures.ThreadPoolExecutor(self.num_threads) as pool:
             pending = [pool.submit(build, s) for s in starts[: self.prefetch_depth]]

@@ -37,6 +37,7 @@ import torch
 from mraudio_tpu_torch.config import RunConfig
 from mraudio_tpu_torch.data.annotations import chunk_annotations, load_annotations
 from mraudio_tpu_torch.data.dataset import BatchLoader, MRDataset
+from mraudio_tpu_torch.parallel import comm, local_batch_size, mesh_for, shard_module_
 from mraudio_tpu_torch.text.postprocess import moment_str_to_list, post_process
 from mraudio_tpu_torch.utils.profiling import StageTimes, profile_to
 
@@ -67,17 +68,29 @@ def build_model(cfg: RunConfig, device="cuda"):
 
 def refuse_unported(cfg: RunConfig) -> None:
     """Raise ``NotImplementedError``, naming the ROADMAP.md item, for a
-    config that asks for what the port does not do: a tokenizer path, a
-    mesh."""
+    config that asks for what the port does not do: a tokenizer path,
+    VideoLLaMA on a mesh."""
     if cfg.tokenizer_path:
         raise NotImplementedError(
             "RunConfig.tokenizer_path is not read: the JAX package builds its models with "
             "ByteTokenizer and reads the field nowhere, so the port refuses it rather than "
             "ignore it (ROADMAP.md C.3); load a tokenizer with "
             "text.tokenizer.load_llama_tokenizer and pass it to the model instead")
-    if cfg.mesh.num_devices > 1:
-        raise NotImplementedError("a mesh of more than one device is not ported yet "
-                                  "(ROADMAP.md A.7: parallelism)")
+    refuse_unported_mesh(cfg)
+
+
+def refuse_unported_mesh(cfg: RunConfig, what: str = "") -> None:
+    """A mesh of more than one device runs X-InstructBLIP through the
+    evaluate and finetune paths; ``what`` names another entry point
+    (serving), which refuses one."""
+    if cfg.mesh.num_devices <= 1:
+        return
+    from mraudio_tpu_torch.models.factory import canonical_model_name
+
+    if what or canonical_model_name(cfg.model_name) != "X-InstructBLIP":
+        raise NotImplementedError(
+            f"{what or cfg.model_name} on a mesh of more than one device is not ported yet "
+            "(ROADMAP.md A.7.1: parallelism, the rest)")
 
 
 def run_inference(
@@ -103,10 +116,22 @@ def run_inference(
     then stored int8 (``models/quant_tree.py``).
     ``batch_fallback``: on ``torch.cuda.OutOfMemoryError`` the driver
     frees the allocator's cache, halves the batch size and restarts the
-    whole pass (records are written only after a pass completes)."""
+    whole pass (records are written only after a pass completes).
+
+    On a mesh (``cfg.mesh``, one process per device; ``parallel/``) the
+    full model's parameters are sliced into this rank's shards after the
+    casts; each data rank generates its ``batch_size / data`` rows of
+    every batch and the model ranks of a data group the same rows; the
+    records are gathered in annotation order on every rank and rank 0
+    alone writes ``output_file``.  An out-of-memory error raises there
+    (one rank cannot halve its batch alone)."""
     from mraudio_tpu_torch.models.casting import cast_params_for_inference
 
     refuse_unported(cfg)
+    mesh = mesh_for(cfg.mesh)
+    if mesh is not None:
+        local_batch_size(batch_size, mesh)
+        batch_fallback = False
     if model is None:
         model = build_model(cfg, device)
     cast_params_for_inference(model)
@@ -114,6 +139,8 @@ def run_inference(
         from mraudio_tpu_torch.models.quant_tree import quantize_module_
 
         quantize_module_(model, keys=getattr(model, "ENCODER_PARAM_KEYS", ()))
+    if mesh is not None:
+        shard_module_(model, mesh)
 
     if annotations is None:
         annotations = load_annotations(cfg.data.annotation_file)
@@ -133,7 +160,9 @@ def run_inference(
     # the model's own config: VideoLLaMA has no saliency head
     want_saliency = bool(getattr(model.cfg, "saliency_head", False))
 
-    def emit(batch, outputs, saliency, records):
+    def emit(batch, outputs, saliency, records, first: int):
+        """Append ``(annotation position, record)`` for each valid row;
+        row 0 of ``batch`` is annotation ``first``."""
         for row, (qid, query, vid, raw_out, dur, valid) in enumerate(zip(
             batch.qid, batch.query, batch.vid, outputs, batch.duration, batch.valid,
         )):
@@ -159,11 +188,16 @@ def run_inference(
             if saliency is not None:
                 record["pred_saliency_scores"] = saliency_to_clip_grid(
                     batch.timestamps[row], saliency[row], dur)
-            records.append(record)
+            records.append((first + row, record))
 
     def attempt(bs):
         """One full pass at batch size ``bs``."""
-        loader = BatchLoader(dataset, bs, shuffle=False, num_threads=max(num_workers, 1))
+        rows = None
+        if mesh is not None:
+            lb = local_batch_size(bs, mesh)
+            rows = (mesh.data_index * lb, lb)
+        loader = BatchLoader(dataset, bs, shuffle=False, num_threads=max(num_workers, 1),
+                             rows=rows)
         times = StageTimes()
         records: list[dict] = []
         batches: list[dict] = []
@@ -171,7 +205,8 @@ def run_inference(
         it = iter(loader)
         current = next(it, None)
         dev = model.device_inputs(current) if current is not None else None
-        inflight = None  # (batch, pending)
+        inflight = None  # (batch, its first annotation, pending)
+        first = rows[0] if rows else 0
         while current is not None or inflight is not None:
             if current is not None:
                 batch, batch_dev = current, dev
@@ -182,22 +217,29 @@ def run_inference(
                     pending = model.generate_submit(batch=batch, device_inputs=batch_dev,
                                                     stats=stats)
                 batches.append({k: stats[k] for k in _STAT_KEYS if k in stats})
-                submitted = (batch, pending)
+                submitted = (batch, first, pending)
+                first += bs
             else:
                 submitted = None
             if inflight is not None:
-                pbatch, pending = inflight
+                pbatch, pfirst, pending = inflight
                 with times.stage("parse_write"):
                     if want_saliency:
                         outputs, saliency = model.generate_finalize(pending, return_saliency=True)
                     else:
                         outputs, saliency = model.generate_finalize(pending), None
-                    emit(pbatch, outputs, saliency, records)
+                    emit(pbatch, outputs, saliency, records, pfirst)
             inflight = submitted
+        if mesh is not None:
+            # one copy of each data rank's records, in annotation order
+            records = sorted(comm.allgather_results(records if mesh.model_index == 0 else []),
+                             key=lambda x: x[0])
+        records = [r for _, r in records]
         return records, len(records), time.time() - start, times, batches
 
-    tracing = (profile_to(profile_dir, cuda=model.device.type == "cuda") if profile_dir
-               else contextlib.nullcontext())
+    main = mesh is None or mesh.rank == 0
+    tracing = (profile_to(profile_dir, cuda=model.device.type == "cuda")
+               if profile_dir and main else contextlib.nullcontext())
     bs = batch_size
     with tracing:
         while True:
@@ -222,7 +264,7 @@ def run_inference(
         n_clips, elapsed, clips_per_sec, times.summary(),
     )
 
-    if output_file:
+    if output_file and main:
         os.makedirs(os.path.dirname(os.path.abspath(output_file)), exist_ok=True)
         with open(output_file, "w") as f:
             for record in records:

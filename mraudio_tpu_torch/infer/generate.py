@@ -59,7 +59,7 @@ def prefill_cache(model: LlamaModel, prefix_embeds, positions, full_mask, alloc_
     starts = list(range(0, s, chunk)) if chunk and s > chunk else [0]
     obs_start = s - min(model.cfg.kv_keep_obs, s) if model.cfg.kv_keep > 0 else None
     dev = prefix_embeds.device
-    cache = init_cache(model.cfg, b, alloc_len, dev)
+    cache = init_cache(model.cache_cfg, b, alloc_len, dev)
     k_idx = torch.arange(alloc_len, device=dev)
     pad = full_mask[:, None, None, :].bool()
     hidden = None

@@ -69,6 +69,7 @@ from mraudio_tpu_torch.models.layers import (DECODE_ROWS, NEG_INF, Embed, RMSNor
 from mraudio_tpu_torch.ops.attention import (chunked_attention, flash_attention, int4_planes,
                                              pack_int4, unpack_int4)
 from mraudio_tpu_torch.ops.gemv import decode_gemv, supports
+from mraudio_tpu_torch.parallel import comm
 
 
 def quantize_kv(x: torch.Tensor):
@@ -147,13 +148,25 @@ def dropout_generator(key: tuple, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed & (2 ** 63 - 1))
 
 
-def lora_dropout(x: torch.Tensor, rate: float, key: tuple) -> torch.Tensor:
+def lora_dropout(x: torch.Tensor, rate: float, key: tuple,
+                 part: tuple | None = None) -> torch.Tensor:
     """Inverted dropout (flax ``nn.Dropout``): each element is kept with
     probability ``1 - rate`` and scaled by ``1 / (1 - rate)``; the mask
-    comes from :func:`dropout_generator` of ``key``."""
+    comes from :func:`dropout_generator` of ``key``.  ``part`` ``(data
+    index, data ranks, first feature, features)``: ``x`` is a data rank's
+    rows of the global batch and (row-parallel) a model rank's features,
+    and takes that part of the whole input's mask, so a mesh drops what
+    one device drops."""
     keep_prob = 1.0 - rate
     gen = dropout_generator(key, x.device)
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+    if part is None:
+        keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+    else:
+        d, data, c0, width = part
+        b = x.shape[0]
+        keep = torch.rand((b * data,) + x.shape[1:-1] + (width,), generator=gen,
+                          device=x.device) < keep_prob
+        keep = keep[d * b:(d + 1) * b, ..., c0:c0 + x.shape[-1]]
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -206,7 +219,16 @@ def _observation_scores(q_obs, k_full, k_scale, kv_valid, q_start: int, score) -
 
 class LlamaLinear(nn.Module):
     """Projection with float, int8 or int4 base weights and a LoRA
-    adapter.  ``quantize_ok=False`` keeps the lm_head in float."""
+    adapter.  ``quantize_ok=False`` keeps the lm_head in float.
+
+    Under tensor parallelism (``parallel/partition.py::shard_module_``)
+    the parameters are this rank's shards and ``tp_mode`` says which: a
+    ``"column"`` projection computes its own output features as it
+    would any other; a ``"row"`` projection returns the f32 partial sum
+    of its input features — base product (with its scale) plus LoRA
+    delta — which the block adds across the ranks (``parallel/comm.py``)
+    and rounds.  ``in_features``/``features`` stay the whole widths,
+    which the GEMV route is decided on, as the JAX package decides it."""
 
     def __init__(self, in_features: int, features: int, cfg: LlamaConfig,
                  lora: Optional[LoraConfig] = None, lora_target: bool = False,
@@ -214,6 +236,11 @@ class LlamaLinear(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.in_features, self.features = in_features, features
+        self.tp_mode: str | None = None
+        self.tp_group = None
+        # on a mesh: (data index, data ranks, first input feature, input
+        # features), the part of a whole batch's dropout mask this rank draws
+        self.dropout_part: tuple | None = None
         self.dtype = torch_dtype(cfg.dtype)
         self.quantized = quantize_ok and cfg.quantization == "int8"
         self.int4 = quantize_ok and cfg.quantization == "int4"
@@ -238,26 +265,41 @@ class LlamaLinear(nn.Module):
             self.lora_scale = lora.alpha / lora.rank
             self.lora_dropout = lora.dropout
 
+    @property
+    def weight(self) -> torch.Tensor:
+        """The stored base weight (this rank's shard under TP)."""
+        if self.quantized:
+            return self.w_int8
+        return self.w_int4 if self.int4 else self.kernel
+
+    def local_dims(self) -> tuple[int, int]:
+        """(input, output) features this rank computes."""
+        w = self.weight
+        if self.int4:
+            return w.shape[0] * self.cfg.int4_group_size, w.shape[-1]
+        return w.shape[0], w.shape[-1]
+
     def gemv_ok(self, x: torch.Tensor) -> bool:
         """Decode-shaped calls (<= 32 rows) take the GEMV kernel when
-        configured and the dims tile; int4 weights and ``int8_dot`` never
-        do (the reference routes neither to its kernel)."""
+        configured and the whole dims tile; int4 weights and ``int8_dot``
+        never do (the reference routes neither to its kernel)."""
         return (self.cfg.decode_gemv == "pallas" and not self.int4
                 and not (self.quantized and self.cfg.int8_dot)
                 and math.prod(x.shape[:-1]) <= DECODE_ROWS
                 and supports(self.in_features, self.features))
 
-    def _int8_dot(self, x: torch.Tensor) -> torch.Tensor:
+    def _int8_dot(self, x: torch.Tensor, group=None) -> torch.Tensor:
         """W8A8: per-row absmax int8 activations (round half to even), an
         exact int8 x int8 → int32 product, then ``acc * (x_scale *
-        scale)`` in f32, cast to the model dtype — the reference's order."""
+        scale)`` in f32 — the reference's order.  Row-parallel (``group``)
+        the absmax is taken over the whole row, across the ranks."""
         xf = x.float()
-        x_scale = xf.abs().amax(dim=-1, keepdim=True) / 127.0
+        x_scale = comm.all_reduce_max(xf.abs().amax(dim=-1, keepdim=True), group) / 127.0
         x_scale = torch.where(x_scale == 0, 1.0, x_scale)
         x_q = torch.round(xf / x_scale).to(torch.int8)
-        acc = int_matmul(x_q.reshape(-1, self.in_features), self.w_int8)
-        acc = acc.reshape(x.shape[:-1] + (self.features,))
-        return (acc.float() * (x_scale * self.scale)).to(self.dtype)
+        acc = int_matmul(x_q.reshape(-1, x.shape[-1]), self.w_int8)
+        acc = acc.reshape(x.shape[:-1] + (acc.shape[-1],))
+        return acc.float() * (x_scale * self.scale)
 
     def _int4_matmul(self, x: torch.Tensor) -> torch.Tensor:
         """Group-wise int4: each nibble plane (group elements ``[0, g/2)``
@@ -267,19 +309,20 @@ class LlamaLinear(nn.Module):
         fewer, per-group partial sums take ``* scale`` before the group
         sum.  Operands in the model dtype on CUDA (the reference's TPU
         route; decode rows padded to :data:`DECODE_ROWS`), f32 on the CPU
-        (its CPU route)."""
+        (its CPU route).  Returns the f32 sums."""
         g = self.cfg.int4_group_size
-        ng, half = self.in_features // g, g // 2
+        in_f, out_f = self.local_dims()
+        ng, half = in_f // g, g // 2
         lo, hi = int4_planes(self.w_int4)                  # (groups, g/2, out) int8
         scale = self.w_int4_scale                          # (groups, out) f32
         op = self.dtype if x.is_cuda else torch.float32
-        x2 = x.reshape(-1, self.in_features).to(op)
+        x2 = x.reshape(-1, in_f).to(op)
         m = x2.shape[0]
         xg = x2.view(m, ng, g)
         xa, xb = xg[..., :half], xg[..., half:]
         if m > 16:
-            lo_w = (lo * scale[:, None, :]).to(op).reshape(ng * half, self.features)
-            hi_w = (hi * scale[:, None, :]).to(op).reshape(ng * half, self.features)
+            lo_w = (lo * scale[:, None, :]).to(op).reshape(ng * half, out_f)
+            hi_w = (hi * scale[:, None, :]).to(op).reshape(ng * half, out_f)
             y = (matmul_f32(xa.reshape(m, ng * half), lo_w)
                  + matmul_f32(xb.reshape(m, ng * half), hi_w))
         else:
@@ -291,33 +334,42 @@ class LlamaLinear(nn.Module):
 
             acc = mm_f32(groups_major(xa), lo.to(op)) + mm_f32(groups_major(xb), hi.to(op))
             y = (acc * scale[:, None, :]).sum(dim=0)[:m]
-        return y.to(self.dtype).reshape(x.shape[:-1] + (self.features,))
+        return y.reshape(x.shape[:-1] + (out_f,))
+
+    def _base(self, x: torch.Tensor) -> torch.Tensor:
+        """The base product as f32 values before the rounding to the
+        model dtype (the GEMV kernel's output is rounded already)."""
+        dt = self.dtype
+        if self.quantized and self.cfg.int8_dot:
+            return self._int8_dot(x, self.tp_group if self.tp_mode == "row" else None)
+        if self.int4:
+            return self._int4_matmul(x)
+        if self.gemv_ok(x):
+            w = self.w_int8 if self.quantized else self.kernel.to(dt)
+            y = decode_gemv(x.reshape(-1, x.shape[-1]).to(dt).contiguous(), w,
+                            self.scale if self.quantized else None, out_dtype=dt)
+            return y.reshape(x.shape[:-1] + (w.shape[-1],)).float()
+        if self.quantized:
+            return matmul_f32(x.to(dt), self.w_int8.to(dt)) * self.scale
+        return matmul_f32(x.to(dt), self.kernel.to(dt))
 
     def forward(self, x: torch.Tensor, dropout_key: tuple | None = None) -> torch.Tensor:
         """``dropout_key``: the training step's key; LoRA dropout then
-        applies to the adapter's input."""
+        applies to the adapter's input.  A row-parallel projection
+        returns its f32 partial sum."""
         dt = self.dtype
-        if self.quantized and self.cfg.int8_dot:
-            y = self._int8_dot(x)
-        elif self.int4:
-            y = self._int4_matmul(x)
-        elif self.gemv_ok(x):
-            w = self.w_int8 if self.quantized else self.kernel.to(dt)
-            rows = x.shape[:-1]
-            y = decode_gemv(x.reshape(-1, x.shape[-1]).to(dt).contiguous(), w,
-                            self.scale if self.quantized else None, out_dtype=dt)
-            y = y.reshape(rows + (self.features,))
-        elif self.quantized:
-            y = (matmul_f32(x.to(dt), self.w_int8.to(dt)) * self.scale).to(dt)
-        else:
-            y = matmul_f32(x.to(dt), self.kernel.to(dt)).to(dt)
+        y = self._base(x)
+        if self.tp_mode != "row":
+            y = y.to(dt)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         if self.lora_scale:
             h = x
             if dropout_key is not None and self.lora_dropout > 0:
-                h = lora_dropout(h, self.lora_dropout, tuple(dropout_key) + self.dropout_id)
-            y = y + self.lora_delta(h.to(dt)) * self.lora_scale
+                h = lora_dropout(h, self.lora_dropout, tuple(dropout_key) + self.dropout_id,
+                                 self.dropout_part)
+            delta = self.lora_delta(h.to(dt)) * self.lora_scale
+            y = y + (delta.float() if self.tp_mode == "row" else delta)
         return y
 
     def lora_delta(self, x: torch.Tensor) -> torch.Tensor:
@@ -356,12 +408,23 @@ class LlamaAttention(nn.Module):
         self.k_proj = lin("k_proj", cfg.num_kv_heads * d)
         self.v_proj = lin("v_proj", cfg.num_kv_heads * d)
         self.o_proj = lin("o_proj", cfg.hidden_size)
+        # this rank's heads (all of them without tensor parallelism)
+        self.heads, self.kv_heads = cfg.num_heads, cfg.num_kv_heads
+        self.tp_group = None
 
     def forward(self, x, mask, positions, cache=None, cache_index=None,
-                kv_valid=None, causal=False, obs_start=None, dropout_key=None):
+                kv_valid=None, causal=False, obs_start=None, dropout_key=None,
+                seq_parallel: bool = False):
+        """``seq_parallel``: ``x`` is this rank's chunk of the sequence
+        (``LlamaConfig.seq_shard``), gathered here and the output
+        reduce-scattered back; otherwise, under tensor parallelism, the
+        output's partial sums are added across the ranks."""
         cfg = self.cfg
+        group = self.tp_group
+        x = (comm.gather_seq(x, group, positions.shape[1]) if seq_parallel
+             else comm.enter_tp(x, group))
         b, s, _ = x.shape
-        h, d, kv_h = cfg.num_heads, cfg.head_dim, cfg.num_kv_heads
+        h, d, kv_h = self.heads, cfg.head_dim, self.kv_heads
         dt = torch_dtype(cfg.dtype)
         q = apply_rope(self.q_proj(x, dropout_key).view(b, s, h, d), positions, cfg.rope_theta)
         k = apply_rope(self.k_proj(x, dropout_key).view(b, s, kv_h, d), positions, cfg.rope_theta)
@@ -436,9 +499,15 @@ class LlamaAttention(nn.Module):
             if prev is None:
                 prev = torch.zeros((b, k_full.shape[1]), dtype=torch.float32, device=x.device)
             lo = max(obs_start - q_offset, 0)
-            if lo < s:
+            if lo < s and group is None:
                 prev = observation_scores(q[:, lo:], k_full, k_scale, kv_valid, q_offset + lo,
                                           prev)
+            elif lo < s:
+                # this rank's heads' sums, added across the ranks in one
+                # order: every rank keeps the same columns
+                part = observation_scores(q[:, lo:], k_full, k_scale, kv_valid, q_offset + lo,
+                                          torch.zeros_like(prev))
+                prev = prev + comm.ordered_sum(part, group)
             cache["obs_score"] = prev
 
         streaming = (cfg.attention_impl in ("chunked", "pallas") and kv_valid is not None
@@ -477,7 +546,19 @@ class LlamaAttention(nn.Module):
                 probs = probs * v_scale[:, :, None, :]
             out = torch.einsum("bhqk,bkhd->bqhd", probs.to(dt), v_full.to(dt))
         out = self.o_proj(out.reshape(b, s, h * d), dropout_key)
-        return out, cache
+        return _tp_exit(out, group, seq_parallel, dt), cache
+
+
+def _tp_exit(partial, group, seq_parallel: bool, dtype):
+    """A row-parallel projection's f32 partial sums → the block output in
+    ``dtype``: reduce-scattered along S under sequence parallelism, added
+    across the model ranks otherwise; without a model axis the output as
+    it is."""
+    if group is None:
+        return partial
+    if seq_parallel:
+        return comm.scatter_seq(partial, group).to(dtype)
+    return comm.row_reduce(partial, group).to(dtype)
 
 
 class LlamaMlp(nn.Module):
@@ -489,17 +570,26 @@ class LlamaMlp(nn.Module):
         self.gate_proj = LlamaLinear(hd, inter, cfg, lora, "gate_proj" in targets)
         self.up_proj = LlamaLinear(hd, inter, cfg, lora, "up_proj" in targets)
         self.down_proj = LlamaLinear(inter, hd, cfg, lora, "down_proj" in targets)
+        self.tp_group = None
 
     def _core(self, x, dropout_key=None):
         return self.down_proj(F.silu(self.gate_proj(x, dropout_key)) * self.up_proj(x, dropout_key),
                               dropout_key)
 
-    def forward(self, x, dropout_key=None):
+    def forward(self, x, dropout_key=None, seq_parallel: bool = False, seq_len: int = 0):
         """With ``cfg.mlp_seq_chunk`` and more tokens than it, the token
         axis goes in tiles of that many (the last zero-padded), each
         recomputed in the backward when a gradient is taken, so only one
         tile's (B, chunk, intermediate) temporaries live at a time.  Tile
-        ``t``'s LoRA dropout key gains ``t``."""
+        ``t``'s LoRA dropout key gains ``t``.  ``seq_parallel``: ``x`` is
+        this rank's chunk of a ``seq_len``-long sequence, as
+        :meth:`LlamaAttention.forward` takes it."""
+        group = self.tp_group
+        x = comm.gather_seq(x, group, seq_len) if seq_parallel else comm.enter_tp(x, group)
+        return _tp_exit(self._tiles(x, dropout_key), group, seq_parallel,
+                        torch_dtype(self.cfg.dtype))
+
+    def _tiles(self, x, dropout_key):
         chunk = self.cfg.mlp_seq_chunk
         s = x.shape[1]
         if not chunk or s <= chunk:
@@ -527,12 +617,14 @@ class LlamaBlock(nn.Module):
         self.mlp = LlamaMlp(cfg, lora)
 
     def forward(self, x, mask, positions, cache=None, cache_index=None,
-                kv_valid=None, causal=False, obs_start=None, dropout_key=None):
+                kv_valid=None, causal=False, obs_start=None, dropout_key=None,
+                seq_parallel: bool = False):
         h, cache = self.attn(self.input_norm(x), mask, positions, cache, cache_index,
                              kv_valid=kv_valid, causal=causal, obs_start=obs_start,
-                             dropout_key=dropout_key)
+                             dropout_key=dropout_key, seq_parallel=seq_parallel)
         x = x + h
-        return x + self.mlp(self.post_attn_norm(x), dropout_key), cache
+        return x + self.mlp(self.post_attn_norm(x), dropout_key, seq_parallel,
+                            positions.shape[1]), cache
 
 
 class LlamaModel(nn.Module):
@@ -556,17 +648,46 @@ class LlamaModel(nn.Module):
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.lm_head = LlamaLinear(cfg.hidden_size, cfg.padded_vocab_size, cfg,
                                    quantize_ok=False)
+        # tensor parallelism (parallel/partition.py::shard_module_): the
+        # model group, and whether the embedding's and the lm_head's
+        # vocabularies are sharded over it
+        self.tp_group = None
+        self.vocab_sharded = False
+
+    @property
+    def cache_cfg(self) -> LlamaConfig:
+        """The config :func:`init_cache` sizes this rank's cache by: its
+        own KV heads under tensor parallelism."""
+        kv = self.layers[0].attn.kv_heads if len(self.layers) else self.cfg.num_kv_heads
+        return self.cfg if kv == self.cfg.num_kv_heads else self.cfg.replace(num_kv_heads=kv)
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        if self.vocab_sharded:
+            return comm.vocab_embed(input_ids, self.embed_tokens.embedding,
+                                    self.tp_group).to(self.dtype)
         return self.embed_tokens(input_ids).to(self.dtype)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        """f32 lm_head logits, padded vocab columns at finfo(f32).min."""
+        """f32 lm_head logits, padded vocab columns at finfo(f32).min.
+        A vocab-sharded lm_head computes this rank's columns, and the
+        whole rows are gathered."""
+        sharded = self.lm_head.tp_mode == "column"
+        if sharded:
+            hidden = comm.enter_tp(hidden, self.tp_group)
         out = self.lm_head(hidden).float()
-        v = self.cfg.vocab_size
-        if self.cfg.padded_vocab_size != v:
-            out[..., v:] = torch.finfo(torch.float32).min
-        return out
+        lo = comm.group_rank(self.tp_group) * out.shape[-1] if sharded else 0
+        v = self.cfg.vocab_size - lo
+        if v < out.shape[-1]:
+            out[..., max(v, 0):] = torch.finfo(torch.float32).min
+        return comm.gather_last(out, self.tp_group) if sharded else out
+
+    def seq_parallel(self, s: int) -> bool:
+        """Whether a call over ``s`` tokens splits the residual stream
+        along S (``cfg.seq_shard`` on a model axis, at least 2 tokens per
+        rank, as the JAX package's ``seq_shard``)."""
+        if not (self.cfg.seq_shard and self.tp_group is not None):
+            return False
+        return s >= 2 * comm.group_size(self.tp_group)
 
     def forward(self, inputs_embeds, mask, positions, cache=None, cache_index=None,
                 return_hidden: bool = False, kv_valid=None, causal: bool = False,
@@ -577,17 +698,23 @@ class LlamaModel(nn.Module):
         ``cfg.grad_checkpoint`` and a gradient to take, each block is
         recomputed in the backward from its input."""
         x = inputs_embeds.to(self.dtype)
+        s = x.shape[1]
+        sp = self.seq_parallel(s)
+        if sp:
+            x = comm.split_seq(x, self.tp_group)
         remat = self.cfg.grad_checkpoint and cache is None and torch.is_grad_enabled()
         for i, block in enumerate(self.layers):
             if remat:
                 x, _ = checkpoint(block, x, mask, positions, None, None, kv_valid=kv_valid,
                                   causal=causal, obs_start=obs_start, dropout_key=dropout_key,
-                                  use_reentrant=False, preserve_rng_state=False)
+                                  seq_parallel=sp, use_reentrant=False, preserve_rng_state=False)
                 continue
             x, _ = block(x, mask, positions, cache[i] if cache is not None else None,
                          cache_index, kv_valid=kv_valid, causal=causal, obs_start=obs_start,
-                         dropout_key=dropout_key)
+                         dropout_key=dropout_key, seq_parallel=sp)
         x = self.final_norm(x)
+        if sp:
+            x = comm.gather_seq_replicated(x, self.tp_group, s)
         if return_hidden:
             return x, cache
         return self.logits(x), cache
@@ -653,7 +780,8 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int, device="cuda",
     (B, max_len) leaf.  A list under ``cfg.scan_layers`` too: the JAX
     package's stacked cache is its ``nn.scan`` plumbing.  The int4 leaves
     keep their (kv_heads, D/2) axes, which the JAX package merges into one
-    only to spare a TPU lane tile its padding."""
+    only to spare a TPU lane tile its padding.  A tensor-parallel rank
+    passes ``LlamaModel.cache_cfg``, which counts its own KV heads."""
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     if cfg.kv_quant in ("int8", "int4"):
         qdtype = torch.int8

@@ -302,6 +302,7 @@ class VideoLLaMA(nn.Module):
 
     # the mean token CE over the targets, 512 positions at a time
     _chunked_ce = XInstructBLIP._chunked_ce
+    _global_count = XInstructBLIP._global_count
 
     def _loss_fn(self, video_u8, audio_wave, concat_ids, concat_mask, labels,
                  crop_params=None, dropout_key=None, *, n_frms: int):

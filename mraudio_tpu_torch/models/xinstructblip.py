@@ -46,6 +46,7 @@ from mraudio_tpu_torch.models.qformer import QFormer
 from mraudio_tpu_torch.ops.fbank import beats_frontend
 from mraudio_tpu_torch.ops.image import (augment_and_normalize, normalize_frames, rgb_to_yuv420,
                                          yuv420_to_rgb)
+from mraudio_tpu_torch.parallel import comm
 from mraudio_tpu_torch.text.prompts import MODALITY_CUES
 from mraudio_tpu_torch.text.tokenizer import ByteTokenizer
 
@@ -561,8 +562,15 @@ class XInstructBLIP(nn.Module):
             target = torch.where(valid, sl, 0.0)
             bce = (torch.clamp(scores, min=0) - scores * target
                    + torch.log1p(torch.exp(-scores.abs())))
-            loss = loss + (bce * valid).sum() / valid.sum().clamp(min=1)
+            loss = loss + (bce * valid).sum() / self._global_count(valid.sum()).clamp(min=1)
         return loss
+
+    def _global_count(self, count: torch.Tensor) -> torch.Tensor:
+        """``count`` summed over the data ranks of a mesh: each rank's loss
+        is its own sum over the global batch's count, so the ranks' losses
+        (and gradients) add up to the global batch's mean."""
+        mesh = getattr(self, "mesh", None)
+        return count if mesh is None else comm.all_reduce_sum(count, mesh.data_group)
 
     def _chunked_ce(self, hidden, labels, chunk: int = 512):
         """Mean token CE over the targets that are not -100 (HF semantics),
@@ -592,7 +600,7 @@ class XInstructBLIP(nn.Module):
             else:
                 ll, n = step(*args)
             ll_sum, count = ll_sum + ll, count + n
-        return -ll_sum / count.clamp(min=1)
+        return -ll_sum / self._global_count(count).clamp(min=1)
 
     def loss_arrays(self, batch) -> tuple:
         """Host-side text prep → the host arrays :meth:`_loss_fn` takes, in

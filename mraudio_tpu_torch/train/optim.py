@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from mraudio_tpu_torch.config import TrainConfig
+from mraudio_tpu_torch.parallel import comm
 
 # Parameter names that train (the reference trains the LoRA adapters only).
 DEFAULT_TRAINABLE_PATTERN = r"(lora_a|lora_b)"
@@ -183,3 +184,16 @@ class Optimizer:
 def build_optimizer(cfg: TrainConfig, trainable_flat: dict, steps_per_epoch: int,
                     optimizer: str = "adamw") -> Optimizer:
     return Optimizer(cfg, trainable_flat, steps_per_epoch, optimizer)
+
+
+def global_grad_norm(grads: dict, sharded=(), group=None) -> torch.Tensor:
+    """The f32 L2 norm of a gradient dict as one device would take it:
+    each leaf in ``sharded`` is this rank's shard of a leaf split over
+    ``group`` (the model ranks), whose squares are summed across it, so
+    every element counts once; every other leaf is whole on each rank
+    and counts once."""
+    squares = {k: g.float().square().sum() for k, g in grads.items()}
+    split = sum((v for k, v in squares.items() if k in sharded), torch.zeros(()))
+    whole = sum((v for k, v in squares.items() if k not in sharded), torch.zeros(()))
+    dev = next(iter(squares.values())).device if squares else torch.device("cpu")
+    return torch.sqrt(comm.all_reduce_sum(split.to(dev), group) + whole.to(dev))

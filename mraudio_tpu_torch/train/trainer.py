@@ -38,8 +38,17 @@ checkpoints (the JAX package's ``train/trainer.py``).
   stacked, the JAX package's layout (``models/convert_jax.py::
   stack_layers``); the trainer's own leaves stay per layer.
 
-Refused (``NotImplementedError`` naming the ROADMAP.md item): a mesh of
-more than one device (A.7).
+On a mesh (``cfg.mesh``, one process per device, ``parallel/``): the
+model's full parameters are sliced into this rank's shards after the
+casts; each data rank's loaders yield its ``batch_size / data`` rows of
+the global batch the JAX package's ``Trainer`` sees in one process, and
+the crops are drawn for the global batch and sliced; each rank's loss is
+its part of the global batch's mean, the gradients are summed over the
+data ranks (and over the model ranks for the replicated LoRA leaves that
+sharded compute feeds: a column projection's ``lora_a``, a row
+projection's ``lora_b``); checkpoints hold the full leaves, which rank 0
+alone writes, as it alone writes the run log.  ``encoder_window`` on a
+mesh raises, as in the JAX package.
 
 Both backbones train: X-InstructBLIP (LoRA, and the saliency head) and
 VideoLLaMA (LoRA, the connector and the audio projector), each by its
@@ -65,10 +74,13 @@ from mraudio_tpu_torch.eval.mr_eval import eval_submission
 from mraudio_tpu_torch.models.casting import keeps_dtype
 from mraudio_tpu_torch.models.convert_jax import (flax_params, stack_layers, torch_name,
                                                   unstack_layers)
+from mraudio_tpu_torch.parallel import (comm, gather_params, local_batch_size, mesh_for,
+                                        shard_module_, shard_params)
 from mraudio_tpu_torch.text.postprocess import moment_str_to_list, post_process
 from mraudio_tpu_torch.train import checkpoint as ckpt
 from mraudio_tpu_torch.train.optim import (DEFAULT_TRAINABLE_PATTERN, build_optimizer,
-                                           lavis_warmup_cosine_schedule, split_trainable)
+                                           global_grad_norm, lavis_warmup_cosine_schedule,
+                                           split_trainable)
 from mraudio_tpu_torch.utils.logging import MetricLogger, SmoothedValue
 from mraudio_tpu_torch.utils.runlog import RunLogger
 
@@ -82,13 +94,23 @@ class Preempted(RuntimeError):
 
 
 def refuse_unported(cfg: RunConfig) -> None:
-    """Raise ``NotImplementedError``, naming the ROADMAP.md item, for a
-    training configuration the port does not run."""
+    """Raise for a training configuration the port does not run
+    (``NotImplementedError`` naming the ROADMAP.md item) or nobody can."""
+    from mraudio_tpu_torch.infer.evaluate import refuse_unported_mesh
+
     if cfg.train.quant_frozen not in ("none", "", "int8"):
         raise ValueError(f"unknown quant_frozen={cfg.train.quant_frozen!r}")
-    if cfg.mesh.num_devices > 1:
-        raise NotImplementedError("a mesh of more than one device is not ported yet "
-                                  "(ROADMAP.md A.7: parallelism)")
+    if cfg.mesh.num_devices > 1 and cfg.train.encoder_window > 0:
+        raise ValueError("train.encoder_window is a single-chip memory lever; "
+                         "on a mesh shard the LLM over the `model` axis instead")
+    refuse_unported_mesh(cfg)
+
+
+class _NoRunLog:
+    """The run log of a rank other than 0: nothing is written."""
+
+    def log(self, event: str, **fields) -> None:
+        pass
 
 
 class Trainer:
@@ -103,6 +125,9 @@ class Trainer:
         refuse_unported(cfg)
         self.cfg = cfg
         tc = cfg.train
+        self.mesh = mesh_for(cfg.mesh)
+        self.local_batch = (tc.batch_size if self.mesh is None
+                            else local_batch_size(tc.batch_size, self.mesh))
         if model is None:
             from mraudio_tpu_torch.infer.evaluate import build_model
 
@@ -135,6 +160,17 @@ class Trainer:
 
             saved = quantize_module_(model, skip=set(self.trainable))
             logger.info("quant_frozen=int8: %.2f GB of frozen weights saved", saved / 2 ** 30)
+        # on a mesh: each trainable leaf's spec; the leaves split over the
+        # model ranks, and the replicated decoder leaves whose gradients
+        # are partial sums over them
+        self.specs, self._model_sharded, self._model_partial = {}, set(), []
+        if self.mesh is not None:
+            by_port = shard_module_(model, self.mesh)
+            self.specs = {k: by_port[torch_name(tuple(k.split("/")))] for k in self.trainable}
+            if self.mesh.model > 1:
+                self._model_sharded = {k for k, spec in self.specs.items() if "model" in spec}
+                self._model_partial = [k for k in self.trainable if k.startswith("llm/")
+                                       and k not in self._model_sharded]
         enc_keys = getattr(model, "ENCODER_PARAM_KEYS", None)
         self.split_encode = (tc.split_encode_step and enc_keys is not None
                              and hasattr(model, "_loss_from_tokens")
@@ -167,10 +203,13 @@ class Trainer:
             from mraudio_tpu_torch.text.tokenizer import validate_time_budgets
 
             validate_time_budgets(model.llm_tokenizer, model.cfg, int(max(durations)) + 1)
+        rows = (None if self.mesh is None
+                else (self.mesh.data_index * self.local_batch, self.local_batch))
         self.train_loader = BatchLoader(train_dataset, tc.batch_size, shuffle=True, seed=tc.seed,
-                                        drop_last=True, num_threads=max(tc.num_workers, 1))
+                                        drop_last=True, num_threads=max(tc.num_workers, 1),
+                                        rows=rows)
         self.val_loader = BatchLoader(val_dataset, tc.batch_size, shuffle=False,
-                                      num_threads=max(tc.num_workers, 1))
+                                      num_threads=max(tc.num_workers, 1), rows=rows)
 
         self.steps_per_epoch = max(len(self.train_loader), 1)
         self.opt = build_optimizer(tc, self.trainable, self.steps_per_epoch, optimizer)
@@ -196,7 +235,8 @@ class Trainer:
                 pass  # not the main thread
 
         os.makedirs(tc.output_dir, exist_ok=True)
-        self.runlog = RunLogger(tc.output_dir, "train")
+        self.main = self.mesh is None or self.mesh.rank == 0
+        self.runlog = RunLogger(tc.output_dir, "train") if self.main else _NoRunLog()
         if tc.resume_ckpt_path:
             self._load_checkpoint(tc.resume_ckpt_path)
 
@@ -217,17 +257,20 @@ class Trainer:
         step = self.global_step if step is None else step
         v = np.asarray(batch.video)
         h, w = (v.shape[2] * 2 // 3, v.shape[3]) if v.ndim == 4 else (v.shape[2], v.shape[3])
+        # drawn for the global batch; a data rank takes its rows
         crop = sample_crop_params(np.random.default_rng((self.cfg.train.seed + 17, step)),
-                                  v.shape[0], h, w, self.cfg.data.min_scale,
+                                  self.cfg.train.batch_size, h, w, self.cfg.data.min_scale,
                                   self.cfg.data.max_scale)
-        return torch.from_numpy(crop).to(self.device)
+        first = 0 if self.mesh is None else self.mesh.data_index * self.local_batch
+        return torch.from_numpy(crop[first:first + v.shape[0]]).to(self.device)
 
     def dropout_key(self, step: int | None = None) -> tuple:
         """The LoRA dropout key of micro-step ``step`` (default: the next)."""
         return (self.cfg.train.seed + 29, self.global_step if step is None else step)
 
-    def train_step(self, batch) -> torch.Tensor:
-        """One micro-step on ``batch``; returns the loss, on the device."""
+    def train_step(self, batch) -> tuple:
+        """One micro-step on ``batch``; returns the loss and the gradient
+        norm, on the device."""
         model = self.model
         arrays, crop, key, n_frms = self._step_inputs(batch, self.global_step)
         if self.split_encode:
@@ -250,18 +293,31 @@ class Trainer:
             return self.model._encode_modality_tokens(*arrays[:4], n_frms, crop_params=crop)
 
     def _grads(self, loss) -> dict:
+        """The trainable leaves' gradients; on a mesh summed over the data
+        ranks, and over the model ranks for the replicated leaves that
+        sharded compute feeds."""
         leaves = list(self.trainable.values())
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        return {k: torch.zeros_like(p) if g is None else g
-                for (k, p), g in zip(self.trainable.items(), grads)}
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for (k, p), g in zip(self.trainable.items(), grads)}
+        if self.mesh is not None:
+            comm.all_reduce_sum_(grads, self._model_partial, self.mesh.model_group)
+            comm.all_reduce_sum_(grads, list(grads), self.mesh.data_group)
+        return grads
 
     def _apply(self, loss, grads) -> torch.Tensor:
+        """The optimizer step; returns the (global batch's) loss and the
+        gradients' global norm, on the device."""
+        if self.mesh is not None:
+            loss = comm.all_reduce_sum(loss.detach(), self.mesh.data_group)
+        norm = global_grad_norm(grads, self._model_sharded,
+                                None if self.mesh is None else self.mesh.model_group)
         with record_function("optimizer"):
             good = torch.isfinite(loss) if self.cfg.train.nan_guard else None
             self.opt.step(self.trainable, grads, good)
-        return loss.detach()
+        return loss.detach(), norm
 
-    def _loss_step(self, modal: dict, arrays, key) -> torch.Tensor:
+    def _loss_step(self, modal: dict, arrays, key) -> tuple:
         """The LLM loss, its gradients and the update from encoded tokens."""
         with record_function("loss_fwd_bwd"):
             loss = self.model._loss_from_tokens(modal, *arrays[4:], dropout_key=key)
@@ -357,7 +413,7 @@ class Trainer:
                             encoders_on_device_during_steps=on_device,
                             allocated_bytes_before_steps=allocated)
             pending.clear()
-            if self._preempt_requested:
+            if self._preempt_now():
                 self._preempt_exit(epoch)
 
         for batch in self.train_loader.iter_from(skip):
@@ -432,7 +488,7 @@ class Trainer:
                 self._step_in_epoch = i + 1
                 self._flush_pending()
                 self._pending = (loss, self.global_step, epoch, metric_logger)
-                if self._preempt_requested:
+                if self._preempt_now():
                     self._preempt_exit(epoch)
         self._flush_pending()
         logger.info("Averaged stats: %s", metric_logger.global_avg())
@@ -443,7 +499,7 @@ class Trainer:
         (LR, nan-guard count, run log)."""
         if self._pending is None:
             return
-        loss_t, step, epoch, metric_logger = self._pending
+        (loss_t, norm_t), step, epoch, metric_logger = self._pending
         self._pending = None
         loss = float(loss_t)
         lr = float(self.schedule(step - 1))
@@ -467,7 +523,16 @@ class Trainer:
         else:
             self._nan_skips = 0
         metric_logger.update(loss=loss, lr=lr)
-        self.runlog.log("train_step", step=step, epoch=epoch, loss=loss, lr=lr)
+        self.runlog.log("train_step", step=step, epoch=epoch, loss=loss, lr=lr,
+                        grad_norm=float(norm_t))
+
+    def _preempt_now(self) -> bool:
+        """Whether a SIGTERM arrived; on a mesh, at any rank (every rank
+        then saves at the same step)."""
+        if self.mesh is None:
+            return self._preempt_requested
+        flag = torch.tensor([float(self._preempt_requested)], device=self.device)
+        return bool(comm.all_reduce_max(flag, torch.distributed.group.WORLD)[0] > 0)
 
     def _preempt_exit(self, epoch: int):
         """Save ``checkpoint_preempt`` at the exact step position and stop."""
@@ -517,16 +582,26 @@ class Trainer:
                     record["relevant_clip_ids"] = ann.get(
                         "relevant_clip_ids", list(range(len(ann["saliency_scores"]))))
                 results.append(record)
+        if self.mesh is not None:
+            # every data rank's records; the model ranks of a data group
+            # hold the same ones, and the first of them sends them
+            results = _allgather_results(results if self.mesh.model_index == 0 else [])
         return eval_submission(results, results, verbose=False)
 
     # ------------------------------------------------------------------
 
     def _save_checkpoint(self, epoch: int, is_best: bool, name: str | None = None) -> str:
+        """Write the checkpoint's full leaves (on a mesh every rank takes
+        part in gathering them and rank 0 alone writes); returns its
+        path."""
         if name is None:
             name = "best" if is_best else str(epoch)
-        path = ckpt.save_checkpoint(self.cfg.train.output_dir, name,
-                                    self._layout(self.trainable),
-                                    self._layout(self.opt.state_dict()), epoch)
+        model, opt_state = self._full(self.trainable), self._full(self.opt.state_dict())
+        path = os.path.abspath(os.path.join(self.cfg.train.output_dir, f"checkpoint_{name}"))
+        if not self.main:
+            return path
+        ckpt.save_checkpoint(self.cfg.train.output_dir, name, self._layout(model),
+                             self._layout(opt_state), epoch)
         # the exact step position: a resume continues the LR schedule and
         # the dropout and crop streams, and (preempt) skips the consumed
         # part of the epoch
@@ -536,6 +611,24 @@ class Trainer:
                        "step_in_epoch": step_in_epoch}, f)
         logger.info("Saving checkpoint at epoch %d to %s.", epoch, path)
         return path
+
+    def _leaf_spec(self, name: str) -> tuple:
+        """The spec of a trainable leaf or of its optimizer state
+        (``mu/<leaf>``, ...); counters are replicated."""
+        return self.specs.get(name.split("/", 1)[-1] if name.startswith(("mu/", "nu/", "acc/"))
+                              else name, ())
+
+    def _full(self, flat: dict) -> dict:
+        """The full leaves of a flat dict of this rank's shards."""
+        if self.mesh is None:
+            return flat
+        return gather_params(flat, self.mesh, {k: self._leaf_spec(k) for k in flat})
+
+    def _local(self, flat: dict) -> dict:
+        """This rank's shards of a flat dict of full leaves."""
+        if self.mesh is None:
+            return flat
+        return shard_params(flat, self.mesh, {k: self._leaf_spec(k) for k in flat})
 
     def _layout(self, flat: dict) -> dict:
         """A flat dict of per-layer names in the checkpoint's layout: the
@@ -559,8 +652,8 @@ class Trainer:
                                       "(ROADMAP.md A.10: utils/fetch.py)")
         path = ckpt.resolve_path(path)
         payload = ckpt.load_checkpoint(path)
-        self._overlay(unstack_layers(payload["model"]))
-        self.opt.load_state_dict(unstack_layers(payload["opt_state"]))
+        self._overlay(self._local(unstack_layers(payload["model"])))
+        self.opt.load_state_dict(self._local(unstack_layers(payload["opt_state"])))
         epoch = int(payload["epoch"])
         meta = None
         if os.path.exists(path + ckpt.META_SUFFIX):
@@ -576,3 +669,9 @@ class Trainer:
             self.global_step = self.start_epoch * self.steps_per_epoch
         logger.info("Resume checkpoint from %s (epoch %d, step %d, skip %d)",
                     path, self.start_epoch, self.global_step, self._skip_steps)
+
+
+
+# the JAX package's name for the ragged gather of eval records across
+# processes (the reference's ``DistributedSampler`` val split)
+_allgather_results = comm.allgather_results

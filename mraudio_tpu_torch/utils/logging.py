@@ -1,7 +1,7 @@
 """Training metrics: smoothed windows of a series (``SmoothedValue``) and
 a set of them (``MetricLogger``), the LAVIS meters the reference trainer
-uses.  The port trains in one process, so synchronising across
-processes does nothing."""
+uses.  Under a distributed launch the meters' totals and counts are
+summed across the processes, and only rank 0 logs."""
 
 from __future__ import annotations
 
@@ -11,6 +11,10 @@ import logging
 import time
 
 import numpy as np
+import torch
+import torch.distributed as dist
+
+from mraudio_tpu_torch.device import is_main_process
 
 logger = logging.getLogger("mraudio_tpu_torch")
 
@@ -31,7 +35,15 @@ class SmoothedValue:
         self.total += value * n
 
     def synchronize_between_processes(self):
-        """One process: nothing to gather."""
+        """Sum the count and the total over every process (one process:
+        nothing to gather)."""
+        if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
+            return
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if dist.get_backend() == "nccl" else torch.device("cpu"))
+        agg = torch.tensor([self.count, self.total], dtype=torch.float64, device=dev)
+        dist.all_reduce(agg)
+        self.count, self.total = int(agg[0]), float(agg[1])
 
     @property
     def median(self):
@@ -86,7 +98,8 @@ class MetricLogger:
             t0 = time.time()
             yield obj
             iter_time.update(time.time() - t0)
-            if i % print_freq == 0:
+            if i % print_freq == 0 and is_main_process():
                 logger.info("%s [%d]  %s  time: %s", header, i, str(self), str(iter_time))
         total = time.time() - start
-        logger.info("%s total: %s", header, datetime.timedelta(seconds=int(total)))
+        if is_main_process():
+            logger.info("%s total: %s", header, datetime.timedelta(seconds=int(total)))

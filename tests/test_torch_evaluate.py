@@ -304,8 +304,9 @@ def _run_cli_capturing_model(monkeypatch, argv):
 def test_cli_unported_flags_raise(flag, tmp_path, fabricated, monkeypatch):
     """The flags whose machinery is not ported raise, naming their
     ROADMAP.md item; ``--model-path``, ``--audio-encoder`` and
-    ``--params-store`` load their fabricated artifact or store, and
-    ``--checkpoint`` overlays a trained checkpoint's LoRA leaves."""
+    ``--params-store`` load their fabricated artifact or store,
+    ``--checkpoint`` overlays a trained checkpoint's LoRA leaves, and the
+    ones ported since run."""
     gt = tmp_path / "gt.jsonl"
     gt.write_text("".join(json.dumps(a) + "\n" for a in _annotations(1)))
     argv = ["--annotation-file", str(gt), "--output-file", str(tmp_path / "p.jsonl"),
@@ -332,6 +333,12 @@ def test_cli_unported_flags_raise(flag, tmp_path, fabricated, monkeypatch):
         from mraudio_tpu_torch.models.videollama import VideoLLaMA
 
         assert isinstance(_run_cli_capturing_model(monkeypatch, [*argv, flag]), VideoLLaMA)
+        return
+    if flag == "--seq-shard":
+        # ported (ROADMAP.md A.7): without a model axis it splits nothing
+        # and the CLI predicts as without it
+        model = _run_cli_capturing_model(monkeypatch, [*argv, flag])
+        assert model.llm.cfg.seq_shard and not model.llm.seq_parallel(1 << 20)
         return
     if flag == "--quant-encoders":
         # ported (ROADMAP.md A.2): the encoders' kernels are stored int8 (the

@@ -4,6 +4,7 @@ PyYAML, ``transformers`` or ``tokenizers`` at module level (the card's
 machine has no HF packages)."""
 
 import ast
+import os
 import pathlib
 import subprocess
 import sys
@@ -50,6 +51,27 @@ def test_package_imports_without_jax():
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_parallel_modules_and_the_rank_program_stand_alone():
+    """The ``parallel/`` modules are among the sources checked above, and
+    the mesh tests' rank program (``test_torch_parallel_ranks.py``, run in
+    processes of its own) imports neither JAX nor the JAX package."""
+    names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
+    assert {f"mraudio_tpu_torch/parallel/{m}.py"
+            for m in ("__init__", "mesh", "partition", "comm")} <= names
+    code = (
+        "import sys\n"
+        "import test_torch_parallel_ranks\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'optax', 'orbax', 'mraudio_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT / "tests",
+                         env={**os.environ, "PYTHONPATH": str(ROOT)},
+                         capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 

@@ -198,23 +198,30 @@ def test_finetune_cli_on_the_cpu(anns, tmp_path):
     (["--quant-frozen", "int8"], "A.2"), (["--model", "VideoLLaMA"], "A.6"),
 ])
 def test_unported_flags_raise(anns, tmp_path, flag, item, monkeypatch):
-    """Flags whose machinery is not ported raise, naming their ROADMAP.md
-    item (A.7).  The ones ported since (``--model VideoLLaMA``, A.6;
-    ``--single-chip`` and ``--quant-frozen int8``, A.2 and A.11) train the
-    tiny model for one epoch: VideoLLaMA's LoRA, connector and audio
-    projector leaves land in the checkpoint; ``--quant-frozen`` stores the
+    """Flags whose machinery was not ported raised, naming their ROADMAP.md
+    item; each ported since trains the tiny model for one epoch:
+    VideoLLaMA's LoRA, connector and audio projector leaves land in the
+    checkpoint (``--model VideoLLaMA``, A.6); ``--quant-frozen`` stores the
     encoders' kernels int8 (the size threshold lowered to reach the tiny
     kernels); ``--single-chip`` runs one encoder window with the encoders
     off the device during its loss steps and writes the decoder's leaves
-    stacked (``scan_layers``)."""
+    stacked (``scan_layers``) (A.2 and A.11); ``--seq-shard`` splits
+    nothing without a model axis, and ``--distributed`` joins a launch's
+    process group (here a one-process gloo group, the launcher's
+    environment set by hand) and leaves it at the end (A.7)."""
     args = ["--model-size", "tiny", "--train-annotation-file", anns[0],
             "--val-annotation-file", anns[1], "--output-dir", str(tmp_path), "--device", "cpu",
             "--max-epoch", "1", "--batch-size", "2", "--video-source", "synthetic",
             "--num-workers", "1", *flag]
-    if item == "A.7":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-            finetune.main(args)
-        return
+    if flag == ["--distributed"]:
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                         MASTER_PORT=str(port)).items():
+            monkeypatch.setenv(k, v)
     from mraudio_tpu_torch.models import quant_tree
 
     monkeypatch.setattr(quant_tree, "MIN_SIZE", 2048)
@@ -233,6 +240,13 @@ def test_unported_flags_raise(anns, tmp_path, flag, item, monkeypatch):
     if flag == ["--model", "VideoLLaMA"]:
         assert {k.split("/")[0] for k in trained} == {"llm", "connector", "audio_proj"}
         return
+    if item == "A.7":
+        import torch.distributed as dist
+
+        assert not dist.is_initialized()
+        assert built[0].cfg.mesh.num_devices == 1 and built[0].mesh is None
+        assert built[0].cfg.model.llm.seq_shard == (flag == ["--seq-shard"])
+        return
     names = [n for n, _ in built[0].model.named_parameters()]
     assert any(n.startswith("vit.") and n.endswith("kernel.original0") for n in names)
     if flag == ["--single-chip"]:
@@ -248,16 +262,17 @@ def test_unported_flags_raise(anns, tmp_path, flag, item, monkeypatch):
     (dict(mesh=dict(data=2)), "A.7"),
 ])
 def test_unported_config_raises(anns, tmp_path, change, item):
-    """A mesh (A.7) is refused; ``encoder_window`` and ``upload_overlap``
-    (A.11), refused until they were ported, build a trainer: with a
-    window the encoders wait on the host."""
+    """A mesh larger than the launch raises (A.7: one process per
+    device); ``encoder_window`` and ``upload_overlap`` (A.11), refused
+    until they were ported, build a trainer: with a window the encoders
+    wait on the host."""
     _, cfg = configs(anns, tmp_path)
     if "train" in change:
         cfg = cfg.replace(train=cfg.train.replace(**change["train"]))
     else:
         cfg = cfg.replace(mesh=cfg.mesh.replace(**change["mesh"]))
     if item == "A.7":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+        with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices, have 1"):
             trainer_mod.Trainer(cfg, model=fresh_model(cfg), device="cpu")
         return
     trainer = trainer_mod.Trainer(cfg, model=fresh_model(cfg), device="cpu")
