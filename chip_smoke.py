@@ -34,7 +34,11 @@ Phases, each printing one JSON line with its seconds:
    at 4x the rows.  Then both kernels at the per-rank shapes of tensor
    parallelism over 2 and 4 cards (flash over 16 and 8 heads; the GEMV
    on each rank's column or row shard of one decoder layer, 11008/4 =
-   2752 included), under the same checks and timings;
+   2752 included), and at the 2.1-AV decoder's (flash at S = 11123 over
+   14 query heads and 2 KV heads, and 7 and 1; the bf16 GEMV at M = 1 on
+   each rank's six shard shapes, its 3584 x 128 k/v shard and its
+   vocabulary shard of the lm_head included), under the same checks and
+   timings;
 4. small reference: a narrow slice model (head_dim 128) generates on the
    card and on the CPU (plain versions) from the same weights; the
    prefill logits must agree, one-shot, in three 512-token prefill
@@ -65,11 +69,13 @@ Phases, each printing one JSON line with its seconds:
     projections, no kernel: 0 launches asserted) on 5 synthetic QVH clips
     at batch 3, its JSONL checked and scored with the port's scorer; then
     its first batch once more under ``--profile-dir`` with a 16-token
-    budget, broken down as in 6;
+    budget, broken down as in 6 (the card's machine has no libav, so the
+    native media source and ``data/media.py``'s mp4s cannot run there);
 11. fast evaluate: the same with ``--fast`` (the yuv420 wire, the
     temporal-residual ViT, grammar decoding): 0 kernel launches and 0
     invalid predictions asserted;
-12. serve: the serve CLI in-process at full width in its default
+12. serve: the serve CLI in-process at full width (the decoder cut to
+    ``CUT_LAYERS`` = 16 since the 2.1-AV mesh phases came) in its default
     configuration (4 slots, 1 step per dispatch, pipeline depth 2,
     upfront encode) on 6 synthetic QVH requests, so that two slots are
     reused: 6 records on the serve schema, 0 kernel launches, the stats
@@ -82,7 +88,8 @@ Phases, each printing one JSON line with its seconds:
     decode; ``serve()`` must report its timeouts, and Poisson arrivals
     must give the burst run's records; the depth-2 run is traced (device
     idle share of the ``engine`` span);
-14. serve deployed: ``bench.py``'s serve profile through the CLI (4 slots,
+14. serve deployed: ``bench.py``'s serve profile through the CLI (as 12, at
+    ``CUT_LAYERS`` decoder layers; 4 slots,
     ``--max-prefill-batch 2``, ``--kv-keep 1784``, 2 steps per dispatch,
     inline encode in groups of 2 with one group prepared ahead) on 6
     requests; then, for one admission, every layer's kept columns must be
@@ -103,9 +110,10 @@ Phases, each printing one JSON line with its seconds:
     launches); the serve CLI from the store; ``cli.parity --fabricate``
     at tiny size, alone and against its own predictions (PASS).  Its files
     live under ``build/converted`` and are deleted at the end;
-17. train: the finetune CLI in a process of its own at full width and
-    depth in its default configuration (int8 Vicuna-7B, LoRA r 8, block
-    remat, AdamW under 2 accumulation steps, crops): 8 synthetic QVH
+17. train: the finetune CLI in a process of its own at full width in
+    its default configuration (int8 Vicuna-7B cut to ``CUT_LAYERS`` = 16
+    decoder layers, LoRA r 8, block remat, AdamW under 2 accumulation
+    steps, crops): 8 synthetic QVH
     clips at batch 2, 1 epoch, validation on 2; every micro-step timed
     (seconds per micro-step, clips/s, MFU from ``utils/flops.py``), the
     4th traced and split by the ``encode``, ``loss_fwd_bwd`` and
@@ -124,8 +132,8 @@ Phases, each printing one JSON line with its seconds:
     projections and its 152064-wide lm_head at M = 1), bit-identical
     across launch settings and to ``decode_gemv_in_order``; each timed
     beside bound and library call; (b) the evaluate CLI with ``--model
-    VideoLLaMA`` at full width and depth in the default configuration on
-    5 synthetic QVH clips at batch 4 (0 launches), and its first batch
+    VideoLLaMA`` at full width (``CUT_LAYERS`` decoder layers) in the
+    default configuration on 5 synthetic QVH clips at batch 4 (0 launches), and its first batch
     again under ``--profile-dir`` (16 tokens); (c) the model in process in the slice
     routes: 32 flash and 224 GEMV launches per pass, ``lookup_spec=4``
     giving greedy's tokens, the first-step logits against the default
@@ -149,7 +157,8 @@ Phases, each printing one JSON line with its seconds:
     int4 cache, ``--quant-encoders``, the default routes and grammar
     decoding on 3 clips at batch 3: 0 launches, 0 invalid predictions, the
     weight bytes by part and the peak memory; (c) ``quant_w8a8``,
-    ``int8_dot`` at full width in the default routes: 0 launches, each
+    ``int8_dot`` at full width (``CUT_LAYERS`` decoder layers) in the
+    default routes: 0 launches, each
     row's greedy tokens alone equal to its tokens in the 3-row batch, one
     layer's projections through W8A8, the XLA route and the GEMV; (d)
     ``quant_serve``, the engine over the int4 cache with ``kv_keep`` 1784
@@ -165,16 +174,22 @@ Phases, each printing one JSON line with its seconds:
 20. parallel, one process per card over NCCL on every visible card up to
     4: the evaluate CLI under ``torch.distributed.run`` on a cards x 1
     mesh (one card: a 1 x 1 mesh through a real NCCL group) at full
-    width, 8 decoder layers, in the slice configuration: both kernels
-    launched on every rank, the JSONL equal to the same CLI's without a
-    mesh.  With 4 cards also: model = 4 generate at full width and depth
-    on the 3 clips against the same on one card (the first-step logits
-    within ``TP_LOGIT_REL_L2``, the tokens compared and the first
-    differing position reported; with ``seq_shard`` too), grammar
-    decoding at ``spec_width`` 4 and 1 giving identical tokens on the
-    model axis, and the finetune CLI on a 2 x 2 mesh (8 layers, 4
-    micro-steps at a global batch of 2) against one card's losses; per-
-    rank peak memory and seconds.
+    width, 8 decoder layers, in the slice configuration, for both
+    backbones (``--model VideoLLaMA`` too): both kernels launched on every
+    rank, the JSONL equal to the same CLI's without a mesh.  With 4 cards
+    also: model = 4 generate at full width and depth on the 3 clips
+    against the same on one card (the first-step logits within
+    ``TP_LOGIT_REL_L2``, the tokens compared and the first differing
+    position reported; with ``seq_shard`` too), grammar decoding at
+    ``spec_width`` 4 and 1 giving identical tokens on the model axis; the
+    published 2.1-AV decoder at full width and depth on a 1 x 4 mesh on
+    one clip against one card (7 query heads over 1 KV head per rank, 28
+    flash and 197 GEMV launches per rank per prefill and pass, the
+    first-step logits within ``TP_LOGIT_REL_L2``); and the finetune CLI
+    on a 2 x 2 mesh (8 layers, 4 micro-steps at a global batch of 2) for
+    both backbones against one card's losses, VideoLLaMA's connector and
+    audio projector moved and equal on every rank; per-rank peak memory
+    and seconds.
 
 ``--only`` runs the named groups of phases (kernels: 3; models: 4-9;
 evaluate: 10-11; serve: 12-15; converted: 16; train: 17; videollama: 18; quant: 19;
@@ -219,6 +234,10 @@ PEAK_F32_FLOPS = 67e12           # CUDA-core f32 FMA rate (the GEMV's arithmetic
 FLASH_ULPS = 2
 FLASH_ROW_REL = 2.0 ** -6
 SMALL_LOGIT_ATOL = 3e-2                  # bf16 model, card vs CPU rounding
+# the decoder depth of the full-width runs cut to half depth to pay, in the
+# script's time, for the phases added since: the serve CLI (12, 14), the
+# finetune CLI (17, 18e), VideoLLaMA's evaluate CLI (18b) and W8A8 (19c)
+CUT_LAYERS = 16
 # GEMV vs plain: 1 bf16 ulp + GEMV_SUM_ERR * sqrt(K) * 2^-24 * sum|x w| (the
 # size of an f32 summation error; see gemv_identity)
 GEMV_SUM_ERR = 4.0
@@ -1216,6 +1235,20 @@ def lookup_decode(model, batch, greedy: dict, greedy_tokens) -> dict:
     return dict(tokens_equal_greedy=True, greedy_steps=greedy["decode_steps"], **_summary(run))
 
 
+def cut_config(path: Path, **model_changes) -> list:
+    """``--config`` arguments naming a JSON RunConfig of what ``--model-size
+    full`` builds (``full_model_config()`` on the QVH data config) with the
+    decoder cut to :data:`CUT_LAYERS` and ``model_changes``, written to
+    ``path``."""
+    from mraudio_tpu_torch.config import DataConfig, RunConfig, full_model_config
+
+    full = full_model_config()
+    model = full.replace(llm=full.llm.replace(num_layers=CUT_LAYERS), **model_changes)
+    path.write_text(json.dumps(RunConfig(model=model,
+                                         data=DataConfig.for_dataset("QVH")).to_dict()))
+    return ["--config", str(path)]
+
+
 def evaluate_cli(fast: bool = False, model: str = "X-InstructBLIP") -> dict:
     """The evaluate CLI in-process at full width in the deployed default
     configuration (``--model-size full``: chunked attention, XLA-route
@@ -1226,7 +1259,8 @@ def evaluate_cli(fast: bool = False, model: str = "X-InstructBLIP") -> dict:
     (the yuv420 wire, the temporal-residual ViT, grammar decoding at
     ``spec_width=4``): then no prediction may be invalid.  ``model=
     "VideoLLaMA"`` runs ``--model VideoLLaMA`` at batch 4 (``bench.py``'s
-    videollama profile; its 1148-token prefix is one prefill segment)."""
+    videollama profile; its 1148-token prefix is one prefill segment),
+    the decoder cut to :data:`CUT_LAYERS`."""
     from mraudio_tpu_torch.cli import evaluate as cli
     from mraudio_tpu_torch.eval.mr_eval import eval_submission
     from mraudio_tpu_torch.eval.span_utils import load_jsonl
@@ -1249,9 +1283,9 @@ def evaluate_cli(fast: bool = False, model: str = "X-InstructBLIP") -> dict:
     flash_attention.launches = 0
     decode_gemv.launches = 0
     t = time.perf_counter()
-    result = cli.main(["--annotation-file", str(gt), "--output-file", str(out),
-                       "--model-size", "full", "--video-source", "synthetic",
-                       "--batch-size", str(bs), *extra])
+    size = cut_config(root / "config.json") if videollama else ["--model-size", "full"]
+    result = cli.main(["--annotation-file", str(gt), "--output-file", str(out), *size,
+                       "--video-source", "synthetic", "--batch-size", str(bs), *extra])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = {"flash_attention": flash_attention.launches, "decode_gemv": decode_gemv.launches}
@@ -1280,14 +1314,17 @@ def evaluate_cli(fast: bool = False, model: str = "X-InstructBLIP") -> dict:
     # that budget; grammar decoding ends its spans in fewer passes anyway)
     gt3 = root / "annotations_batch0.jsonl"
     gt3.write_text("".join(json.dumps(a) + "\n" for a in anns[:bs]))
-    size, unprofiled = ["--model-size", "full"], batches[0]
+    unprofiled = batches[0]
     if not fast:
         from mraudio_tpu_torch.config import DataConfig, RunConfig, full_model_config
 
         traced = root / "traced_config.json"
-        traced.write_text(json.dumps(RunConfig(
-            model=full_model_config().replace(max_new_tokens=PROFILE_TOKENS),
-            data=DataConfig.for_dataset("QVH")).to_dict()))
+        if videollama:
+            cut_config(traced, max_new_tokens=PROFILE_TOKENS)
+        else:
+            traced.write_text(json.dumps(RunConfig(
+                model=full_model_config().replace(max_new_tokens=PROFILE_TOKENS),
+                data=DataConfig.for_dataset("QVH")).to_dict()))
         size, unprofiled = ["--config", str(traced)], traced_unprofiled(batches[0])
     cli.main(["--annotation-file", str(gt3), "--output-file", str(root / "profiled.jsonl"),
               *size, "--video-source", "synthetic", "--batch-size", str(bs),
@@ -1347,9 +1384,9 @@ def check_records(records: list, n: int, what: str) -> None:
 
 def serve_cli(name: str, extra: list, n: int = 6) -> dict:
     """The serve CLI in-process at full width in the deployed default
-    configuration (no kernel: 0 launches asserted) on ``n`` synthetic QVH
-    requests; its records checked, its stats line and the peak memory
-    returned."""
+    configuration, the decoder cut to :data:`CUT_LAYERS` (no kernel: 0
+    launches asserted) on ``n`` synthetic QVH requests; its records
+    checked, its stats line and the peak memory returned."""
     from mraudio_tpu_torch.cli import serve as cli
     from mraudio_tpu_torch.eval.span_utils import load_jsonl
 
@@ -1362,7 +1399,7 @@ def serve_cli(name: str, extra: list, n: int = 6) -> dict:
     set_launches(0)
     t = time.perf_counter()
     stats = cli.main(["--annotation-file", str(ann), "--output-file", str(out),
-                      "--model-size", "full", "--video-source", "synthetic", *extra])
+                      *cut_config(root / "config.json"), "--video-source", "synthetic", *extra])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = read_launches()
@@ -1372,7 +1409,8 @@ def serve_cli(name: str, extra: list, n: int = 6) -> dict:
     check_records(records, n, name)
     if stats["requests"] != n:
         raise AssertionError(f"{name}: stats {stats}")
-    return dict(stats=stats, launches=launches, peak_mem_bytes=torch.cuda.max_memory_allocated(),
+    return dict(layers=CUT_LAYERS, stats=stats, launches=launches,
+                peak_mem_bytes=torch.cuda.max_memory_allocated(),
                 wall_s_with_model_build=wall, raw_out=[r["raw_out"] for r in records])
 
 
@@ -1870,6 +1908,7 @@ def _converted(dev, root: Path) -> dict:
 # --------------------------------------------------------------------------
 
 TRAIN_CLIPS, VAL_CLIPS, TRAIN_BATCH = 8, 2, 2
+
 # the finetune subprocess: runs the CLI's main with every micro-step timed
 # (synchronised), the fourth traced, and prints one JSON line of readings
 _FINETUNE_RUNNER = r"""
@@ -1958,8 +1997,9 @@ def train_annotations(n: int, start: int = 0) -> list:
 
 
 def finetune_cli(model: str = "X-InstructBLIP") -> dict:
-    """The finetune CLI in a process of its own at full width and depth in
-    its default full configuration (int8 Vicuna-7B, LoRA r 8 on the seven
+    """The finetune CLI in a process of its own at full width in its
+    default full configuration, the decoder cut to :data:`CUT_LAYERS`
+    through a ``--config`` (int8 Vicuna-7B, LoRA r 8 on the seven
     projections, block remat, AdamW under 2 accumulation steps, crops,
     the nan guard): 8 synthetic QVH clips at batch 2 (4 micro-steps, 2
     updates), 1 epoch, validation on 2 clips.  Every loss must be finite,
@@ -1970,11 +2010,15 @@ def finetune_cli(model: str = "X-InstructBLIP") -> dict:
     kernel launched.  ``model="VideoLLaMA"`` trains the second backbone
     (``--model VideoLLaMA``), whose connector and audio projector leaves
     must move too.  The readings are printed before the checks."""
-    from mraudio_tpu_torch.config import AudioFrontendConfig, DATASET_MAX_AUDIO_SECONDS
-    from mraudio_tpu_torch.config import full_model_config
+    from mraudio_tpu_torch.config import (AudioFrontendConfig, DATASET_MAX_AUDIO_SECONDS,
+                                          DataConfig, RunConfig, full_model_config)
     from mraudio_tpu_torch.train.checkpoint import load_checkpoint
     from mraudio_tpu_torch.utils.flops import peak_flops_for, train_step_flops
 
+    full = full_model_config()
+    # the CLI's --model-size full with the decoder cut
+    model_cfg = full.replace(vit=full.vit.replace(grad_checkpoint=True),
+                             llm=full.llm.replace(grad_checkpoint=True, num_layers=CUT_LAYERS))
     videollama = model == "VideoLLaMA"
     root = Path(__file__).resolve().parent / "build" / f"smoke_train_{model}"
     shutil.rmtree(root, ignore_errors=True)
@@ -1983,7 +2027,10 @@ def finetune_cli(model: str = "X-InstructBLIP") -> dict:
     train_ann.write_text("".join(json.dumps(a) + "\n" for a in train_annotations(TRAIN_CLIPS)))
     val_ann.write_text("".join(json.dumps(a) + "\n"
                                for a in train_annotations(VAL_CLIPS, TRAIN_CLIPS)))
-    args = ["--model-size", "full", "--video-source", "synthetic", "--batch-size",
+    config = root / "config.json"
+    config.write_text(json.dumps(RunConfig(model=model_cfg,
+                                           data=DataConfig.for_dataset("QVH")).to_dict()))
+    args = ["--config", str(config), "--video-source", "synthetic", "--batch-size",
             str(TRAIN_BATCH), "--max-epoch", "1", "--save-freq", "1",
             "--train-annotation-file", str(train_ann), "--val-annotation-file", str(val_ann),
             "--output-dir", str(out), "--model", model]
@@ -2006,17 +2053,18 @@ def finetune_cli(model: str = "X-InstructBLIP") -> dict:
     if videollama:
         from mraudio_tpu_torch.models.videollama import videollama_config_from
 
-        flops = vl_train_step_flops(videollama_config_from(full_model_config(), run["n_frms"]),
+        flops = vl_train_step_flops(videollama_config_from(model_cfg, run["n_frms"]),
                                     audio_cfg, run["n_frms"], TRAIN_BATCH, run["seq_len"])
     else:
-        flops = train_step_flops(full_model_config(), audio_cfg, run["n_frms"], TRAIN_BATCH,
+        flops = train_step_flops(model_cfg, audio_cfg, run["n_frms"], TRAIN_BATCH,
                                  run["seq_len"], grad_checkpoint=True)
     peak = peak_flops_for(torch.cuda.get_device_name(0))
     trained = load_checkpoint(str(out / "checkpoint_0"))["model"]
     lora_b = {k: v for k, v in trained.items() if k.endswith("lora_b")}
     moved = sum(bool(v.abs().amax() > 0) for v in lora_b.values())
     best = run["summary"]["best_metric"] > 0
-    result = dict(subprocess_wall_s=wall, cli_wall_s=run["wall_s"], losses=losses,
+    result = dict(layers=CUT_LAYERS, subprocess_wall_s=wall, cli_wall_s=run["wall_s"],
+                  losses=losses,
                   step_s=step_s, s_per_micro_step_median_2_4=median_s,
                   train_clips_per_s=TRAIN_BATCH / median_s, seq_len=run["seq_len"],
                   n_frms=run["n_frms"], train_step_flops=flops,
@@ -2032,7 +2080,7 @@ def finetune_cli(model: str = "X-InstructBLIP") -> dict:
         raise AssertionError(f"finetune: losses {losses}")
     if run["launches"] != {"flash_attention": 0, "decode_gemv": 0}:
         raise AssertionError(f"finetune launched kernels: {run['launches']}")
-    if len(lora_b) != 7 * full_model_config().llm.num_layers or moved != len(lora_b):
+    if len(lora_b) != 7 * CUT_LAYERS or moved != len(lora_b):
         raise AssertionError(f"finetune: {moved} of {len(lora_b)} LoRA B leaves moved")
     if run["frozen_changed"] or not run["frozen_leaves"]:
         raise AssertionError(f"finetune: {run['frozen_changed']} of {run['frozen_leaves']} "
@@ -2340,7 +2388,7 @@ def videollama_kernels(dev, gen) -> dict:
     and to ``decode_gemv_in_order``, within the plain rule; timed per Qwen2
     layer (7 launches) and for the lm_head."""
     from mraudio_tpu_torch.config import full_model_config
-    from mraudio_tpu_torch.models.videollama import videollama21_av_config, videollama_config_from
+    from mraudio_tpu_torch.models.videollama import videollama_config_from
 
     out = {}
     vcfg = videollama_config_from(full_model_config(), 60)
@@ -2351,27 +2399,56 @@ def videollama_kernels(dev, gen) -> dict:
         dev, VL_BATCH, vcfg.llm.num_heads, s, s + vcfg.max_new_tokens + 16, vcfg.llm.head_dim,
         gen, holes, (("interior_padding_ignored", (row, cols), 1),
                      ("kv_tile_skipped", (2, slice(512, 640)), 0)))
+    out["flash_av21"] = av21_flash(dev, gen)
+    gemvs = [check_gemv(dev, 1, kdim, n, False, gen) for kdim, n in av21_gemv_shapes()]
+    out["gemv"] = gemvs
+    out.update(av21_gemv_sums(gemvs, (2, 2, 2, 1)))
+    return out
+
+
+def av21_flash(dev, gen, m: int = 1) -> dict:
+    """Flash at the 2.1-AV prefill (B = 1, S = 11123, the clip's prompt
+    left-padded as a short query would leave it) on one of ``m`` model
+    ranks: 28/m query heads over 4/m KV heads, K and V repeated after the
+    head slice as ``models/llama.py`` feeds them; under the flash rule and
+    its two controls."""
+    from mraudio_tpu_torch.models.videollama import videollama21_av_config
+
     acfg = videollama21_av_config(60)
     s = vl_prefix_len(acfg, 60)
-    # the 2.1-AV clip's prompt as a short query would leave it: left-padded
     (_, cols), _ = _vl_prompt_holes(acfg, 2)[0]
-    out["flash_av21"] = check_flash(
-        dev, 1, acfg.llm.num_heads, s, s + acfg.max_new_tokens + 16, acfg.llm.head_dim, gen,
+    return check_flash(
+        dev, 1, acfg.llm.num_heads // m, s, s + acfg.max_new_tokens + 16, acfg.llm.head_dim, gen,
         (((0, cols), 0),), (("interior_padding_ignored", (0, cols), 1),
                             ("kv_tile_skipped", (0, slice(2944, 3072)), 0)),
-        kv_from_heads=acfg.llm.num_kv_heads)
-    llm = acfg.llm
-    h, kvd = llm.hidden_size, llm.num_kv_heads * llm.head_dim
-    shapes = ((h, h), (h, kvd), (h, llm.intermediate_size), (llm.intermediate_size, h),
-              (h, llm.padded_vocab_size))
-    gemvs = [check_gemv(dev, 1, kdim, n, False, gen) for kdim, n in shapes]
-    per_layer = [gemvs[0]] * 2 + [gemvs[1]] * 2 + [gemvs[2]] * 2 + [gemvs[3]]
-    out["gemv"] = gemvs
-    out["gemv_layer"] = {key: sum(r[key] for r in per_layer)
-                         for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    out["gemv_lm_head"] = {key: gemvs[4][key]
-                           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    return out
+        kv_from_heads=acfg.llm.num_kv_heads // m)
+
+
+def av21_gemv_shapes(m: int = 1) -> list:
+    """(K, N) of the 2.1-AV decode's distinct bf16 GEMVs on one of ``m``
+    model ranks, the lm_head last.  One card (``m = 1``): q/o 3584², k/v
+    3584 x 512, gate/up 3584 x 18944, down 18944 x 3584.  A rank's shards:
+    q 3584 x 3584/m and k/v 3584 x 512/m (columns), o 3584/m x 3584 (rows),
+    gate/up 3584 x 18944/m, down 18944/m x 3584; the lm_head 3584 x
+    152064/m (at m = 4 the k/v shard is 128 columns: 2 strips of 128
+    bytes)."""
+    from mraudio_tpu_torch.models.videollama import videollama21_av_config
+
+    llm = videollama21_av_config(60).llm
+    h, kvd, f = llm.hidden_size, llm.num_kv_heads * llm.head_dim, llm.intermediate_size
+    head = (h, llm.padded_vocab_size // m)
+    if m == 1:
+        return [(h, h), (h, kvd), (h, f), (f, h), head]
+    return [(h, h // m), (h, kvd // m), (h // m, h), (h, f // m), (f // m, h), head]
+
+
+def av21_gemv_sums(gemvs: list, counts: tuple) -> dict:
+    """One Qwen2 layer's readings (each distinct shape taken ``counts``
+    times, the lm_head last and apart) and the lm_head's."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    per_layer = [r for r, c in zip(gemvs, counts) for _ in range(c)]
+    return dict(gemv_layer={k: sum(r[k] for r in per_layer) for k in keys},
+                gemv_lm_head={k: gemvs[-1][k] for k in keys})
 
 
 def _vl_generate(model, batch, **changes) -> dict:
@@ -2762,8 +2839,9 @@ def projection_layer_ms(dev, b, gen, llm_cfg, cold_bytes=160e6) -> dict:
 
 
 def quant_w8a8(dev, seed: int = 0) -> dict:
-    """The model at full width and depth with ``int8_dot`` (W8A8) in the
-    default routes on the 3-clip QVH batch (``QUANT_TOKENS`` tokens): 0
+    """The model at full width, the decoder cut to :data:`CUT_LAYERS`, with
+    ``int8_dot`` (W8A8) in the default routes on the 3-clip QVH batch
+    (``QUANT_TOKENS`` tokens): 0
     launches (W8A8 precedes the GEMV route), finite logits; from the
     batch's own prefix, each row's greedy tokens alone equal its tokens in
     the 3-row batch, bit for bit; one layer's projections at 3 rows
@@ -2773,7 +2851,7 @@ def quant_w8a8(dev, seed: int = 0) -> dict:
     from mraudio_tpu_torch.infer.generate import greedy_generate
 
     full = full_model_config()
-    cfg = full.replace(llm=full.llm.replace(int8_dot=True))
+    cfg = full.replace(llm=full.llm.replace(int8_dot=True, num_layers=CUT_LAYERS))
     audio_cfg = AudioFrontendConfig(max_audio_seconds=DATASET_MAX_AUDIO_SECONDS["QVH"])
     model = build_model(cfg, audio_cfg, dev, seed)
     seed_lora_b_(model, seed)
@@ -3066,7 +3144,7 @@ TP_LOGIT_REL_L2 = 0.10
 TP_TRAIN_LOSS_RTOL = TRAIN_LOSS_RTOL
 
 _PARALLEL_RUNNER = r"""
-import json, os, sys, time
+import hashlib, json, os, sys, time
 from pathlib import Path
 import torch
 import chip_smoke
@@ -3082,6 +3160,25 @@ def peak():
 def save(obj):
     (out / f"{tag}.json").write_text(json.dumps(obj))
 
+# the trainable leaves outside the decoder (VideoLLaMA's connector and audio
+# projector): whether the run moved each, and a digest of its bytes
+replicated = {}
+if mode == "finetune":
+    from mraudio_tpu_torch.train import trainer as trainer_mod
+    real_train = trainer_mod.Trainer.train
+
+    def recorded(self):
+        start = {k: p.detach().clone() for k, p in self.trainable.items()
+                 if not k.startswith("llm/")}
+        summary = real_train(self)
+        for k, p in start.items():
+            now = self.trainable[k].detach()
+            replicated[k] = dict(moved=not torch.equal(now, p), sha256=hashlib.sha256(
+                now.float().cpu().numpy().tobytes()).hexdigest())
+        return summary
+
+    trainer_mod.Trainer.train = recorded
+
 chip_smoke.set_launches(0)
 t = time.perf_counter()
 if mode in ("evaluate", "finetune"):
@@ -3090,7 +3187,9 @@ if mode in ("evaluate", "finetune"):
     if cuda:
         torch.cuda.synchronize()
     save(dict(rank=rank, world=world, launches=chip_smoke.read_launches(),
-              peak_mem_bytes=peak(), wall_s=time.perf_counter() - t))
+              peak_mem_bytes=peak(), wall_s=time.perf_counter() - t, replicated=replicated))
+elif mode == "generate_av21":   # the 2.1-AV decoder over a 1 x world mesh
+    save(chip_smoke.tp_generate_av21(out, rank, world, cuda))
 else:   # generate [--device cpu]: the slice model over a 1 x world mesh
     save(chip_smoke.tp_generate(out, rank, world, cuda))
 """
@@ -3162,6 +3261,88 @@ def tp_generate(out: Path, rank: int, world: int, cuda: bool) -> dict:
     return res
 
 
+def tp_generate_av21(out: Path, rank: int, world: int, cuda: bool) -> dict:
+    """In one process of a ``world``-card launch (or alone): the published
+    2.1-AV architecture (SigLIP-so400m, BEATs, Qwen2-7B in bf16) at full
+    width and depth in the slice routes, seeded on this process's card in
+    f32 (so every rank and the one-card run hold the same bits), cast,
+    then sliced over a 1 x ``world`` mesh: 7 query heads over 1 KV head per
+    rank at 4 cards; greedy on one synthetic QVH clip (378² frames, ROADMAP
+    C.7).  Rank 0 saves the tokens and the first-step logits; every rank
+    returns its launches, seconds, peak memory and the bytes of its f32
+    logits per decode row (its vocabulary shard, and the whole row the
+    gather gives it).  Without a card: the tiny VideoLLaMA with grouped-
+    query attention and q/k/v biases in f32 on gloo (the rehearsal)."""
+    from mraudio_tpu_torch import parallel
+    from mraudio_tpu_torch.config import (DATASET_MAX_AUDIO_SECONDS, DATASET_N_FRMS,
+                                          AudioFrontendConfig, MeshConfig, tiny_data_config)
+    from mraudio_tpu_torch.device import init_distributed
+    from mraudio_tpu_torch.models.casting import cast_params_for_inference
+    from mraudio_tpu_torch.models.convert_jax import init_random_
+    from mraudio_tpu_torch.models.videollama import (VideoLLaMA, tiny_videollama_config,
+                                                     videollama21_av_config)
+
+    dev = init_distributed("cuda" if cuda else "cpu") if world > 1 else torch.device(
+        "cuda" if cuda else "cpu")
+    route = dict(attention_impl="pallas", decode_gemv="pallas", prefill_chunk=0)
+    if cuda:
+        n_frms = DATASET_N_FRMS["QVH"]
+        cfg = videollama21_av_config(n_frms)
+        cfg = cfg.replace(llm=cfg.llm.replace(**route))
+        audio_cfg = AudioFrontendConfig(max_audio_seconds=DATASET_MAX_AUDIO_SECONDS["QVH"])
+        seconds = audio_cfg.max_audio_seconds
+    else:
+        n_frms, tiny = 4, tiny_videollama_config()
+        cfg = tiny.replace(llm=tiny.llm.replace(dtype="float32", num_kv_heads=2,
+                                                attention_bias=True, **route),
+                           vit=tiny.vit.replace(dtype="float32"),
+                           beats=tiny.beats.replace(dtype="float32"))
+        audio_cfg = tiny_data_config().audio
+        a = audio_cfg
+        seconds = (a.hop_length * (n_frms * a.mel_frames_per_chunk - 1) + a.win_length) \
+            / a.sampling_rate
+    t = time.perf_counter()
+    model = VideoLLaMA(cfg, audio_cfg=audio_cfg, device=dev)
+    init_random_(model, seed=0)
+    cast_params_for_inference(model)
+    if world > 1:
+        parallel.shard_module_(model, parallel.make_mesh(MeshConfig(data=1, model=world)))
+    init_peak = 0
+    if cuda:
+        torch.cuda.synchronize()
+        init_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    init_s = time.perf_counter() - t
+    grid = cfg.vit.image_size // cfg.vit.patch_size * cfg.vit.patch_size
+    batch = qvh_batch(1, n_frms, grid, seconds, audio_cfg.sampling_rate, seed=1)
+    stats = {}
+    set_launches(0)
+    t = time.perf_counter()
+    tokens = model.generate_submit(batch=batch, stats=stats).cpu()
+    wall = time.perf_counter() - t
+    launches, passes = read_launches(), stats["decode_steps"]
+    attn = model.llm.layers[0].attn
+    vocab = model.llm.lm_head.local_dims()[1]
+    res = dict(rank=rank, world=world, init_s=init_s, init_peak_mem_bytes=init_peak,
+               launches=launches, passes=passes,
+               layers=cfg.llm.num_layers, heads=attn.heads, kv_heads=attn.kv_heads,
+               want_launches={"flash_attention": cfg.llm.num_layers,
+                              "decode_gemv": gemv_launches(cfg.llm, passes)},
+               prefix_len=stats["prefix_len"], encode_s=stats["encode_s"],
+               prefill_s=stats["prefill_s"], decode_s=stats["decode_s"], wall_s=wall,
+               peak_mem_bytes=torch.cuda.max_memory_allocated() if cuda else 0,
+               logits_f32_bytes_per_row=dict(shard=4 * vocab, gathered=4 * cfg.llm.vocab_size))
+    if rank == 0:
+        torch.save(dict(greedy=dict(tokens=tokens, logits=stats["prefill_logits"][
+            :, :cfg.llm.vocab_size].float().cpu())), out / f"generate_av21_{world}.pt")
+    del model
+    if world > 1:
+        from mraudio_tpu_torch.device import shutdown_distributed
+
+        shutdown_distributed()
+    return res
+
+
 def _launch(mode: str, out: Path, nproc: int, args: list, timeout: int) -> list:
     """The parallel runner in ``nproc`` processes under
     ``torch.distributed.run`` (or one plain process for ``nproc=0``);
@@ -3197,18 +3378,21 @@ def _parallel_config(out: Path, name: str, data: int, model: int, **llm) -> Path
     return path
 
 
-def parallel_evaluate(out: Path, cards: int) -> dict:
+def parallel_evaluate(out: Path, cards: int, model: str = "X-InstructBLIP") -> dict:
     """The evaluate CLI under ``torch.distributed.run`` over NCCL on
     ``cards`` cards (a ``cards`` x 1 mesh: a 1 x 1 mesh through a real
     NCCL group on one card), full width at the serving depth in the slice
     configuration, ``PARALLEL_CLIPS`` clips x ``cards`` at a global batch
     of ``cards``: every rank must launch flash and the GEMV, and the
     JSONL must equal the same CLI's without a mesh at batch 1 (each rank
-    computes one row, as one card does at batch 1)."""
+    computes one row, as one card does at batch 1).  ``model="VideoLLaMA"``
+    runs ``--model VideoLLaMA`` (its EVA-ViT-g + Vicuna form, the decoder
+    at the same depth)."""
     clips = PARALLEL_CLIPS * cards
     gt = out / "annotations.jsonl"
     gt.write_text("".join(json.dumps(a) + "\n" for a in serve_annotations(clips)))
-    common = ["--annotation-file", str(gt), "--video-source", "synthetic", "--num-workers", "1"]
+    common = ["--annotation-file", str(gt), "--video-source", "synthetic", "--num-workers", "1",
+              "--model", model]
     mesh_cfg = _parallel_config(out, "mesh", cards, 1, num_layers=PARALLEL_LAYERS)
     one_cfg = _parallel_config(out, "one", 1, 1, num_layers=PARALLEL_LAYERS)
     ranks = _launch("evaluate", out, cards, [*common, "--config", str(mesh_cfg), "--batch-size",
@@ -3216,15 +3400,56 @@ def parallel_evaluate(out: Path, cards: int) -> dict:
                                              str(out / "mesh.jsonl")], 300)
     alone = _launch("evaluate", out, 0, [*common, "--config", str(one_cfg), "--batch-size", "1",
                                          "--output-file", str(out / "one.jsonl")], 300)[0]
-    result = dict(cards=cards, clips=clips, layers=PARALLEL_LAYERS, ranks=ranks, one_card=alone)
+    result = dict(model=model, cards=cards, clips=clips, layers=PARALLEL_LAYERS, ranks=ranks,
+                  one_card=alone)
     emit({"phase": "parallel_evaluate_readings", **result})
     for r in ranks:
         if not (r["launches"]["flash_attention"] > 0 and r["launches"]["decode_gemv"] > 0):
-            raise AssertionError(f"parallel evaluate: rank {r['rank']} launched {r['launches']}")
+            raise AssertionError(f"parallel evaluate {model}: rank {r['rank']} launched "
+                                 f"{r['launches']}")
     mesh_text, one_text = (out / "mesh.jsonl").read_text(), (out / "one.jsonl").read_text()
     if mesh_text != one_text or len(mesh_text.splitlines()) != clips:
-        raise AssertionError("parallel evaluate: the mesh JSONL differs from one card's")
+        raise AssertionError(f"parallel evaluate {model}: the mesh JSONL differs from one "
+                             "card's")
     return dict(result, jsonl_equal=True)
+
+
+def _vs_one_card(a: dict, b: dict) -> dict:
+    """A mesh run's tokens and first-step logits (``a``) against one
+    card's (``b``): the first position where each row's tokens differ."""
+    rows = [next((i for i, (x, y) in enumerate(zip(ra, rb)) if x != y), None)
+            for ra, rb in zip(a["tokens"].tolist(), b["tokens"].tolist())]
+    return dict(tokens_equal=bool(torch.equal(a["tokens"], b["tokens"])),
+                first_differing_position=rows,
+                logits_rel_l2=float((a["logits"] - b["logits"]).norm() / b["logits"].norm()),
+                logits_max_abs_diff=float((a["logits"] - b["logits"]).abs().max()),
+                argmax_equal=bool(torch.equal(a["logits"].argmax(-1), b["logits"].argmax(-1))))
+
+
+def parallel_generate_av21(out: Path, cards: int = 4) -> dict:
+    """The 2.1-AV decoder at full width and depth on a 1 x ``cards`` mesh
+    (``tp_generate_av21``) against the same on one card: per rank 28
+    flash launches per prefill and 197 GEMV launches per pass (and one for
+    the prefill's lm_head), 7 query heads over 1 KV head at 4 cards; the
+    first-step logits within ``TP_LOGIT_REL_L2`` of one card's, the first
+    differing token positions reported; per-rank peak memory and decode
+    seconds."""
+    ranks = _launch("generate_av21", out, cards, [], 600)
+    alone = _launch("generate_av21", out, 0, [], 600)[0]
+    cmp = _vs_one_card(torch.load(out / f"generate_av21_{cards}.pt", weights_only=True)["greedy"],
+                       torch.load(out / "generate_av21_1.pt", weights_only=True)["greedy"])
+    result = dict(cards=cards, ranks=ranks, one_card=alone, vs_one_card=cmp)
+    emit({"phase": "parallel_generate_av21_readings", **result})
+    if not cmp["logits_rel_l2"] <= TP_LOGIT_REL_L2:
+        raise AssertionError(f"parallel 2.1-AV generate: logits rel L2 {cmp['logits_rel_l2']}")
+    for r in ranks + [alone]:
+        if r["launches"] != r["want_launches"] or r["launches"]["flash_attention"] != 28:
+            raise AssertionError(f"parallel 2.1-AV generate: rank {r['rank']} of {r['world']} "
+                                 f"launched {r['launches']}, want {r['want_launches']}")
+    if any((r["heads"], r["kv_heads"]) != (28 // cards, 4 // cards) for r in ranks):
+        raise AssertionError(f"parallel 2.1-AV generate: heads per rank "
+                             f"{[(r['heads'], r['kv_heads']) for r in ranks]}")
+    return result
 
 
 def parallel_generate(out: Path, cards: int = 4) -> dict:
@@ -3238,23 +3463,8 @@ def parallel_generate(out: Path, cards: int = 4) -> dict:
     alone = _launch("generate", out, 0, [], 400)[0]
     mesh = torch.load(out / f"generate_{cards}.pt", weights_only=True)
     one = torch.load(out / "generate_1.pt", weights_only=True)
-
-    def first_diff(a, b):
-        rows = []
-        for ra, rb in zip(a.tolist(), b.tolist()):
-            rows.append(next((i for i, (x, y) in enumerate(zip(ra, rb)) if x != y), None))
-        return rows
-
-    cmp = {}
-    for name in ("greedy", "seq_shard", "grammar4"):
-        a, b = mesh[name], one["grammar4" if name == "grammar4" else "greedy"]
-        rel = float((a["logits"] - b["logits"]).norm() / b["logits"].norm())
-        cmp[name] = dict(tokens_equal=bool(torch.equal(a["tokens"], b["tokens"])),
-                         first_differing_position=first_diff(a["tokens"], b["tokens"]),
-                         logits_rel_l2=rel,
-                         logits_max_abs_diff=float((a["logits"] - b["logits"]).abs().max()),
-                         argmax_equal=bool(torch.equal(a["logits"].argmax(-1),
-                                                       b["logits"].argmax(-1))))
+    cmp = {name: _vs_one_card(mesh[name], one["grammar4" if name == "grammar4" else "greedy"])
+           for name in ("greedy", "seq_shard", "grammar4")}
     result = dict(cards=cards, ranks=ranks, one_card=alone, vs_one_card=cmp)
     emit({"phase": "parallel_generate_readings", **result})
     for name, c in cmp.items():
@@ -3273,12 +3483,16 @@ def parallel_generate(out: Path, cards: int = 4) -> dict:
     return result
 
 
-def parallel_finetune(out: Path, cards: int = 4) -> dict:
+def parallel_finetune(out: Path, cards: int = 4, model_name: str = "X-InstructBLIP") -> dict:
     """The finetune CLI at full width (default configuration, the depth
     cut to ``PARALLEL_LAYERS``) under ``torch.distributed.run`` on a
     data = 2 x model = 2 mesh, 4 micro-steps at a global batch of 2,
     against the same CLI on one card: losses within
-    ``TP_TRAIN_LOSS_RTOL``; per-rank peak memory and wall time."""
+    ``TP_TRAIN_LOSS_RTOL``; per-rank peak memory and wall time.
+    ``model_name="VideoLLaMA"`` trains the second backbone, whose
+    connector and audio projector (replicated leaves fed by the sharded
+    decoder's input gradient) must move and end equal, bit for bit, on
+    every rank."""
     from mraudio_tpu_torch.config import (DataConfig, MeshConfig, RunConfig, full_model_config)
 
     train_ann, val_ann = out / "train.jsonl", out / "val.jsonl"
@@ -3291,47 +3505,57 @@ def parallel_finetune(out: Path, cards: int = 4) -> dict:
     runs = {}
     for name, mesh, nproc in (("mesh", MeshConfig(data=2, model=2), cards),
                               ("one", MeshConfig(), 0)):
-        config = out / f"train_{name}.json"
+        run_dir = out / f"train_{model_name}_{name}"     # a run log of its own
+        config = run_dir.with_suffix(".json")
         config.write_text(json.dumps(RunConfig(model=model, data=DataConfig.for_dataset("QVH"),
                                                mesh=mesh).to_dict()))
         ranks = _launch("finetune", out, nproc, [
             "--config", str(config), "--video-source", "synthetic", "--batch-size", "2",
             "--max-epoch", "1", "--train-annotation-file", str(train_ann),
-            "--val-annotation-file", str(val_ann), "--output-dir", str(out / name),
-            "--num-workers", "1"], 400)
-        events = [json.loads(ln) for ln in (out / name / "train.jsonl").read_text().splitlines()]
+            "--val-annotation-file", str(val_ann), "--output-dir", str(run_dir),
+            "--num-workers", "1", "--model", model_name], 400)
+        events = [json.loads(ln) for ln in (run_dir / "train.jsonl").read_text().splitlines()]
         runs[name] = dict(ranks=ranks, losses=[e["loss"] for e in events
                                                if e["event"] == "train_step"])
-    result = dict(cards=cards, layers=PARALLEL_LAYERS, mesh_2x2=runs["mesh"],
+    result = dict(model=model_name, cards=cards, layers=PARALLEL_LAYERS, mesh_2x2=runs["mesh"],
                   one_card=runs["one"])
     emit({"phase": "parallel_finetune_readings", **result})
     a, b = runs["mesh"]["losses"], runs["one"]["losses"]
     if len(a) != 4 or len(b) != 4 or not all(
             math.isfinite(x) and abs(x - y) <= TP_TRAIN_LOSS_RTOL * abs(y) for x, y in zip(a, b)):
-        raise AssertionError(f"parallel finetune: losses {a} against one card's {b}")
+        raise AssertionError(f"parallel finetune {model_name}: losses {a} against one card's {b}")
+    if model_name == "VideoLLaMA":
+        leaves = [r["replicated"] for r in runs["mesh"]["ranks"]]
+        groups = {k.split("/")[0] for k in leaves[0]}
+        if (groups != {"connector", "audio_proj"} or any(lv != leaves[0] for lv in leaves)
+                or not all(v["moved"] for v in leaves[0].values())):
+            raise AssertionError(f"parallel finetune VideoLLaMA: connector and projector "
+                                 f"leaves per rank {leaves}")
     return result
 
 
 def parallel_group() -> dict:
-    """Phase 20 on every visible card up to 4: the evaluate CLI over NCCL;
-    with 4 cards also the model = 4 generate and the 2 x 2 finetune."""
+    """Phase 20 on every visible card up to 4: the evaluate CLI over NCCL,
+    with both backbones; with 4 cards also the model = 4 generate of the
+    assembly and of the 2.1-AV decoder, and the 2 x 2 finetune of both
+    backbones."""
     cards = min(torch.cuda.device_count(), 4)
     root = Path(__file__).resolve().parent / "build" / "smoke_parallel"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
-    emit({"phase": "parallel_cards", "cards": cards,
-          "runs": ["evaluate"] + (["generate", "finetune"] if cards >= 4 else [])})
-    out = dict(cards=cards)
-    t = time.perf_counter()
-    out["evaluate"] = parallel_evaluate(root, cards)
-    emit({"phase": "parallel_evaluate", "seconds": time.perf_counter() - t})
+    runs = [("evaluate", lambda: parallel_evaluate(root, cards)),
+            ("videollama_evaluate", lambda: parallel_evaluate(root, cards, "VideoLLaMA"))]
     if cards >= 4:
+        runs += [("generate", lambda: parallel_generate(root)),
+                 ("generate_av21", lambda: parallel_generate_av21(root)),
+                 ("finetune", lambda: parallel_finetune(root)),
+                 ("videollama_finetune", lambda: parallel_finetune(root, 4, "VideoLLaMA"))]
+    emit({"phase": "parallel_cards", "cards": cards, "runs": [name for name, _ in runs]})
+    out = dict(cards=cards)
+    for name, run in runs:
         t = time.perf_counter()
-        out["generate"] = parallel_generate(root)
-        emit({"phase": "parallel_generate", "seconds": time.perf_counter() - t})
-        t = time.perf_counter()
-        out["finetune"] = parallel_finetune(root)
-        emit({"phase": "parallel_finetune", "seconds": time.perf_counter() - t})
+        out[name] = run()
+        emit({"phase": f"parallel_{name}", "seconds": time.perf_counter() - t})
     shutil.rmtree(root, ignore_errors=True)
     return out
 
@@ -3437,6 +3661,22 @@ def main() -> int:
             emit({"phase": "kernel", "name": f"decode_gemv, one decoder layer at model={m}",
                   "b3": tp[m]["gemv_layer"]})
 
+        # the 2.1-AV decoder's per-rank shapes (its mesh path, phase 20):
+        # flash on a rank's 14 or 7 query heads over 2 or 1 KV heads, the
+        # bf16 GEMV at M = 1 on a rank's six shard shapes
+        tp_av21 = {}
+        for m in TP_WIDTHS:
+            fl = av21_flash(dev, gen, m)
+            emit({"phase": "kernel", "model_axis": m, "model": "av21", **fl})
+            gv = []
+            for kdim, n in av21_gemv_shapes(m):
+                r = check_gemv(dev, 1, kdim, n, False, gen, by_cluster=False)
+                emit({"phase": "kernel", "model_axis": m, "model": "av21", **r})
+                gv.append(r)
+            tp_av21[m] = dict(flash=fl, gemv=gv, **av21_gemv_sums(gv, (1, 2, 1, 2, 1)))
+            emit({"phase": "kernel", "name": f"decode_gemv, one Qwen2 layer at model={m}",
+                  "b1": tp_av21[m]["gemv_layer"], "lm_head": tp_av21[m]["gemv_lm_head"]})
+
         gemv_layer = layer(gemvs)
         gemv_layer_m = {m: layer(rs) for m, rs in gemvs_m.items()}
         emit({"phase": "kernel", "name": "decode_gemv, one decoder layer",
@@ -3445,7 +3685,8 @@ def main() -> int:
                                   gemv_m=gemvs_m, gemv_rows=gemv_rows, gemv_rows16=gemv_rows16,
                                   gemv_other=gemv_other, per_row_attention=per_row,
                                   chunked_attention=chunked, xla_projections=xla_proj,
-                                  gemv_layer=gemv_layer, gemv_layer_m=gemv_layer_m, tp=tp)
+                                  gemv_layer=gemv_layer, gemv_layer_m=gemv_layer_m, tp=tp,
+                                  tp_av21=tp_av21)
         emit({"phase": "kernels", "seconds": time.perf_counter() - t})
 
     if on("models"):
@@ -3654,10 +3895,13 @@ def main() -> int:
                                    results["single_chip"]["launches"][name],
                                "parallel_evaluate": sum(
                                    r["launches"][name]
-                                   for r in results["parallel"]["evaluate"]["ranks"])}
+                                   for r in results["parallel"]["evaluate"]["ranks"]),
+                               "parallel_videollama_evaluate": sum(
+                                   r["launches"][name] for r in
+                                   results["parallel"]["videollama_evaluate"]["ranks"])}
                         for name in ("flash_attention", "decode_gemv")}
     vl = results["vl_kernels"]
-    tp = results["kernels"]["tp"]
+    tp, tp_av21 = results["kernels"]["tp"], results["kernels"]["tp_av21"]
 
     def at(r):      # a kernel's readings at one of the VideoLLaMA shapes
         return {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")}
@@ -3673,7 +3917,9 @@ def main() -> int:
              library_ms=flash["library_ms"],
              videollama={"b4_h32_s1148": at(vl["flash_videollama"]),
                          "av21_b1_h28_kv4_s11123": at(vl["flash_av21"])},
-             per_rank={f"model{m}_b3_h{h // m}_s{s}": at(tp[m]["flash"]) for m in TP_WIDTHS}),
+             per_rank={**{f"model{m}_b3_h{h // m}_s{s}": at(tp[m]["flash"]) for m in TP_WIDTHS},
+                       **{f"model{m}_av21_b1_h{28 // m}_kv{4 // m}_s11123":
+                          at(tp_av21[m]["flash"]) for m in TP_WIDTHS}}),
         dict(name="decode_gemv", route="cuda",
              source="mraudio_tpu_torch/csrc/decode_gemv.cu",
              replaces="mraudio_tpu/ops/gemv.py:109",
@@ -3686,9 +3932,15 @@ def main() -> int:
              videollama={"av21_qwen2_layer_bf16_b1": vl["gemv_layer"],
                          "av21_lm_head_bf16_b1": vl["gemv_lm_head"],
                          "max_abs_err": max(r["max_abs_err"] for r in vl["gemv"])},
-             per_rank={f"model{m}_layer_int8_b3": dict(
+             per_rank={**{f"model{m}_layer_int8_b3": dict(
                  tp[m]["gemv_layer"], max_abs_err=max(r["max_abs_err"] for r in tp[m]["gemv"]))
-                 for m in TP_WIDTHS}),
+                 for m in TP_WIDTHS},
+                 **{f"model{m}_av21_qwen2_layer_bf16_b1": dict(
+                     tp_av21[m]["gemv_layer"],
+                     max_abs_err=max(r["max_abs_err"] for r in tp_av21[m]["gemv"]))
+                    for m in TP_WIDTHS},
+                 **{f"model{m}_av21_lm_head_bf16_b1": tp_av21[m]["gemv_lm_head"]
+                    for m in TP_WIDTHS}}),
     ]
     print(card, flush=True)
     emit({"kernels": kernels})

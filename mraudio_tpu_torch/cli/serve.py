@@ -19,9 +19,11 @@ random from ``train.seed`` with the checkpoints the config,
 trained checkpoint of ``cli/finetune.py``.  ``--quant-encoders`` stores
 the frozen encoders' large kernels int8 (``models/quant_tree.py``); a
 ``--config``'s ``model.llm`` selects int4 weights or cache, W8A8,
-``scan_layers`` and ``mlp_seq_chunk``.  A config that asks for what the
-port does not run raises ``NotImplementedError`` naming its ROADMAP.md
-item.  ``--model VideoLLaMA`` raises too, naming ROADMAP.md C.3: the
+``scan_layers`` and ``mlp_seq_chunk``.  A config that names a tokenizer
+path or a mesh of more than one device raises ``NotImplementedError``
+naming ROADMAP.md C.3 (the JAX package's serve CLI reads the first
+nowhere and ignores the second).  ``--model VideoLLaMA`` raises too,
+naming ROADMAP.md C.3: the
 JAX package's serve CLI cannot serve that backbone either (its encode stream calls
 ``prepare_text`` and its engine ``prefix_and_prompt``, which VideoLLaMA
 lacks).
@@ -506,7 +508,7 @@ def main(argv=None):
     from mraudio_tpu_torch.cli.convert import resolve_params
     from mraudio_tpu_torch.cli.evaluate import build_config, load_trained
     from mraudio_tpu_torch.data.dataset import MRDataset
-    from mraudio_tpu_torch.infer.evaluate import refuse_unported, refuse_unported_mesh
+    from mraudio_tpu_torch.infer.evaluate import refuse_unported
     from mraudio_tpu_torch.models.casting import cast_params_for_inference
     from mraudio_tpu_torch.models.factory import build_model
 
@@ -524,7 +526,12 @@ def main(argv=None):
         cfg = cfg.replace(model=cfg.model.replace(
             llm=cfg.model.llm.replace(kv_keep=args.kv_keep)))
     refuse_unported(cfg)
-    refuse_unported_mesh(cfg, "the serve CLI")
+    if cfg.mesh.num_devices > 1:
+        raise NotImplementedError(
+            "the serve CLI on a mesh of more than one device: the JAX package's serve CLI "
+            "builds its params without a mesh (mraudio_tpu/cli/serve.py:750-775) and serves on "
+            "one device whatever the config says, so the port refuses the field rather than "
+            "ignore it (ROADMAP.md C.3)")
     inline = args.encode_mode == "inline"
     if args.arrival_rate and inline:
         raise SystemExit("--arrival-rate is upfront-encoded load mode; use --encode-mode upfront")

@@ -3,9 +3,10 @@
 The port builds its own copy of the shared library from the C++ source
 ``native/mraudio_native.cc`` into ``build/native/`` on first use, with
 the flags and libraries of ``native/Makefile``, and never writes into
-``native/``.  Exposes probe / frame-gather / audio-decode plus the
-test-media writers.  Where libav is missing the build fails and
-:class:`NativeUnavailable` is raised.
+``native/``.  Exposes probe / frame-gather / audio-decode, the
+transcoder of ``cli/prepare_data.py`` and the media writers.  Where
+libav is missing the build fails and :class:`NativeUnavailable` is
+raised.
 """
 
 from __future__ import annotations
@@ -84,9 +85,17 @@ def load():
             ctypes.c_char_p, ctypes.c_int,
             ctypes.POINTER(ctypes.c_float), ctypes.c_longlong,
         ]
+        lib.mr_transcode.argtypes = [
+            ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+        ]
         lib.mr_write_test_video.argtypes = [
             ctypes.c_char_p, ctypes.POINTER(ctypes.c_ubyte),
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+        ]
+        lib.mr_write_test_video_vfr.argtypes = [
+            ctypes.c_char_p, ctypes.POINTER(ctypes.c_ubyte),
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+            ctypes.POINTER(ctypes.c_longlong),
         ]
         lib.mr_write_test_audio.argtypes = [
             ctypes.c_char_p, ctypes.POINTER(ctypes.c_float),
@@ -163,6 +172,13 @@ def decode_audio(lib, path: str, sample_rate: int, max_seconds: float = 600.0) -
     return out[: int(n)]
 
 
+def transcode(lib, src: str, dst: str, width: int, height: int) -> None:
+    """Any video → a video-only H.264 mp4 downscaled to ``width`` x
+    ``height`` (the reference notebook's ffmpeg step)."""
+    if lib.mr_transcode(src.encode(), dst.encode(), width, height) != 0:
+        raise IOError(f"transcode failed for {src}: {_err(lib)}")
+
+
 def write_test_video(lib, path: str, frames: np.ndarray, fps: float) -> None:
     frames = np.ascontiguousarray(frames, dtype=np.uint8)
     n, h, w, _ = frames.shape
@@ -173,6 +189,26 @@ def write_test_video(lib, path: str, frames: np.ndarray, fps: float) -> None:
     )
     if rc != 0:
         raise IOError(f"write_test_video failed: {_err(lib)}")
+
+
+def write_test_video_vfr(lib, path: str, frames: np.ndarray, fps: float,
+                         pts: np.ndarray) -> None:
+    """Variable-frame-rate test media: frame ``i`` presented at ``pts[i]``
+    ticks of 1/``fps``, so the container's average and nominal rates
+    disagree, as in consumer VBR encodes."""
+    frames = np.ascontiguousarray(frames, dtype=np.uint8)
+    pts = np.ascontiguousarray(pts, dtype=np.int64)
+    n, h, w, _ = frames.shape
+    if pts.shape != (n,):
+        raise ValueError(f"pts {pts.shape} for {n} frames")
+    rc = lib.mr_write_test_video_vfr(
+        path.encode(),
+        frames.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)),
+        n, h, w, fps,
+        pts.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
+    )
+    if rc != 0:
+        raise IOError(f"write_test_video_vfr failed: {_err(lib)}")
 
 
 def write_media(

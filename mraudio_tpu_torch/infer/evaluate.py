@@ -68,29 +68,14 @@ def build_model(cfg: RunConfig, device="cuda"):
 
 def refuse_unported(cfg: RunConfig) -> None:
     """Raise ``NotImplementedError``, naming the ROADMAP.md item, for a
-    config that asks for what the port does not do: a tokenizer path,
-    VideoLLaMA on a mesh."""
+    config that sets a tokenizer path, which the JAX package reads
+    nowhere."""
     if cfg.tokenizer_path:
         raise NotImplementedError(
             "RunConfig.tokenizer_path is not read: the JAX package builds its models with "
             "ByteTokenizer and reads the field nowhere, so the port refuses it rather than "
             "ignore it (ROADMAP.md C.3); load a tokenizer with "
             "text.tokenizer.load_llama_tokenizer and pass it to the model instead")
-    refuse_unported_mesh(cfg)
-
-
-def refuse_unported_mesh(cfg: RunConfig, what: str = "") -> None:
-    """A mesh of more than one device runs X-InstructBLIP through the
-    evaluate and finetune paths; ``what`` names another entry point
-    (serving), which refuses one."""
-    if cfg.mesh.num_devices <= 1:
-        return
-    from mraudio_tpu_torch.models.factory import canonical_model_name
-
-    if what or canonical_model_name(cfg.model_name) != "X-InstructBLIP":
-        raise NotImplementedError(
-            f"{what or cfg.model_name} on a mesh of more than one device is not ported yet "
-            "(ROADMAP.md A.7.1: parallelism, the rest)")
 
 
 def run_inference(

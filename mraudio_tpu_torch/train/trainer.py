@@ -94,16 +94,12 @@ class Preempted(RuntimeError):
 
 
 def refuse_unported(cfg: RunConfig) -> None:
-    """Raise for a training configuration the port does not run
-    (``NotImplementedError`` naming the ROADMAP.md item) or nobody can."""
-    from mraudio_tpu_torch.infer.evaluate import refuse_unported_mesh
-
+    """Raise for a training configuration that nobody can run."""
     if cfg.train.quant_frozen not in ("none", "", "int8"):
         raise ValueError(f"unknown quant_frozen={cfg.train.quant_frozen!r}")
     if cfg.mesh.num_devices > 1 and cfg.train.encoder_window > 0:
         raise ValueError("train.encoder_window is a single-chip memory lever; "
                          "on a mesh shard the LLM over the `model` axis instead")
-    refuse_unported_mesh(cfg)
 
 
 class _NoRunLog:
@@ -646,11 +642,21 @@ class Trainer:
         for k, p in self.trainable.items():
             p.copy_(restored[k])
 
+    def reload_best_model(self) -> None:
+        """Load ``checkpoint_best`` into the trainable leaves (the
+        reference's ``_reload_best_model``); the optimizer state is left
+        as it is."""
+        path = os.path.join(self.cfg.train.output_dir, "checkpoint_best")
+        self._overlay(self._local(unstack_layers(ckpt.load_checkpoint(path)["model"])))
+        logger.info("Loading checkpoint from %s.", path)
+
     def _load_checkpoint(self, path: str) -> None:
-        if "://" in path:
-            raise NotImplementedError("resuming from a URL is not ported yet "
-                                      "(ROADMAP.md A.10: utils/fetch.py)")
-        path = ckpt.resolve_path(path)
+        """Resume from ``path``: a checkpoint, its sidecar, or a URL naming
+        the checkpoint or an archive of it with its sidecar
+        (``utils/fetch.py``: downloaded and extracted once)."""
+        from mraudio_tpu_torch.utils import fetch
+
+        path = ckpt.resolve_path(fetch.cached_checkpoint(path))
         payload = ckpt.load_checkpoint(path)
         self._overlay(self._local(unstack_layers(payload["model"])))
         self.opt.load_state_dict(self._local(unstack_layers(payload["opt_state"])))

@@ -3,6 +3,8 @@
 * :class:`StageTimes` aggregates per-stage host seconds and item counts
   (clips/s per stage); each stage is also a ``record_function`` span, so
   it names its part of a profiler trace;
+* :func:`annotate` names a span of a trace (the JAX package's
+  ``jax.profiler.TraceAnnotation``);
 * :func:`profile_to` captures a ``torch.profiler`` trace of a block and
   writes it to ``<logdir>/trace.json`` (chrome trace format: open it in
   Perfetto or ``chrome://tracing``).
@@ -46,6 +48,13 @@ class StageTimes:
             }
             for name in self.seconds
         }
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+    """A named span over the block in a ``torch.profiler`` trace."""
+    with record_function(name):
+        yield
 
 
 @contextlib.contextmanager

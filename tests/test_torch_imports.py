@@ -96,3 +96,18 @@ def test_videollama_module_is_covered():
     tree = ast.parse(path.read_text(), filename=str(path))
     tops = {name.split(".")[0] for name in _imports(tree)}
     assert "mraudio_tpu_torch" in tops and not tops & set(FORBIDDEN)
+
+
+def test_every_module_of_the_jax_package_has_a_counterpart():
+    """Every ``*.py`` of the JAX package has its namesake in the port but
+    ``utils/platform.py`` (JAX's platform and compile-cache set-up, whose
+    counterpart is ``device.py``); the new modules are among the sources
+    checked above."""
+    jax_files = {p.relative_to(ROOT / "mraudio_tpu").as_posix()
+                 for p in (ROOT / "mraudio_tpu").rglob("*.py")}
+    port_files = {p.relative_to(ROOT / "mraudio_tpu_torch").as_posix()
+                  for p in (ROOT / "mraudio_tpu_torch").rglob("*.py")}
+    assert jax_files - port_files == {"utils/platform.py"}
+    names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
+    assert {f"mraudio_tpu_torch/{m}.py" for m in ("data/media", "cli/prepare_data",
+                                                   "utils/fetch")} <= names

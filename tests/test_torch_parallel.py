@@ -22,6 +22,16 @@ the tiny model in f32 with a non-zero LoRA B.  Tolerances:
   within rel 1e-6 and leaves within 1e-5 of their largest |leaf| (the
   row-parallel sums and the data ranks' gradient sum add in another
   order).
+
+VideoLLaMA (``--model VideoLLaMA`` of the tiny config with 4 query heads
+over 2 KV heads and q/k/v biases, so each model rank holds 2 query heads
+over 1 KV head) runs on the same ranks under the same tolerances, but for
+its connector's and audio projector's gradients against JAX's one-device
+ones: bf16 products in both packages, held at 2^-6 of the leaf's largest
+|g| (ROADMAP.md C.5).  Those replicated leaves are fed by the sharded
+decoder's input gradient: their gradients must come out whole (equal
+within each model group before the data ranks' sum) and equal on every
+rank after it.
 """
 
 import json
@@ -35,6 +45,7 @@ import torch
 from mraudio_tpu.config import MeshConfig as JMeshConfig
 from mraudio_tpu.config import RunConfig as JRunConfig
 from mraudio_tpu.config import tiny_data_config as j_tiny_data
+from mraudio_tpu.models.factory import build_model as j_build_model
 from mraudio_tpu.models.xinstructblip import XInstructBLIP as JModel
 from mraudio_tpu.parallel import make_mesh as j_make_mesh
 from mraudio_tpu.parallel import param_shardings
@@ -45,18 +56,20 @@ from mraudio_tpu.train.trainer import Trainer as JTrainer
 from mraudio_tpu_torch import parallel
 from mraudio_tpu_torch.config import MeshConfig, RunConfig, tiny_data_config
 from mraudio_tpu_torch.infer.evaluate import run_inference
-from mraudio_tpu_torch.models.convert_jax import flax_params
+from mraudio_tpu_torch.models.convert_jax import flax_params, torch_name
 from mraudio_tpu_torch.ops.image import sample_crop_params
 from mraudio_tpu_torch.train.checkpoint import load_checkpoint
 from mraudio_tpu_torch.train.trainer import Trainer
-from test_torch_parallel_ranks import (BATCH, VARIANTS, annotations, f32_config,
+from test_torch_parallel_ranks import (BATCH, VARIANTS, VL_VARIANTS, annotations, f32_config,
                                        global_batch, launch, run_once, seeded_model,
-                                       trainer_config, write_annotations)
+                                       seeded_videollama, trainer_config, vl_config,
+                                       vl_trainer_config, write_annotations)
 from test_torch_train_loss import jax_tree
 
 torch.set_num_threads(1)
 
-SCENARIOS = ["generate", "decoders", "loss", "train", "infer", "gather", "mesh_errors"]
+SCENARIOS = ["generate", "decoders", "loss", "train", "infer", "gather", "mesh_errors",
+             "vl_generate", "vl_loss", "vl_train"]
 
 
 def _jax_cfg(cfg):
@@ -80,6 +93,8 @@ def _mesh_run(out):
     (out / "crop.json").write_text(json.dumps(crop.tolist()))
     cfg = trainer_config(out / "train_single", out / "train.jsonl", out / "val.jsonl")
     Trainer(cfg, model=seeded_model(cfg.model), device="cpu").train()
+    cfg = vl_trainer_config(out / "vl_train_single", out / "train.jsonl", out / "val.jsonl")
+    Trainer(cfg, model=seeded_videollama(cfg), device="cpu").train()
     launch(out, 2, 2, SCENARIOS)
 
 
@@ -137,13 +152,19 @@ def test_make_mesh_shapes_and_errors(out):
 @pytest.mark.parametrize("llm, stacked", [
     ({}, False), ({"quantization": "int8"}, False),
     ({"quantization": "int4", "int4_group_size": 16}, False), ({"scan_layers": True}, True),
+    ("videollama", False),
 ])
 def test_partition_specs_match_param_shardings(shape, llm, stacked):
     """Every leaf's spec equals the JAX package's ``param_shardings`` on a
     mesh of the same shape: the TP rules on the float, int8, int4 and
     LoRA leaves, the vocab-sharded lm_head and embedding, FSDP over the
-    encoders, the ``scan_layers`` shift, and with ``fsdp_encoders`` off."""
-    model = seeded_model(f32_config(llm))
+    encoders, the ``scan_layers`` shift, and with ``fsdp_encoders`` off;
+    and on a VideoLLaMA tree (grouped-query attention with q/k/v biases,
+    which no rule names: replicated in both specs, sliced with their
+    projection by ``shard_module_``; the trainable connector and audio
+    projector replicated, its towers under FSDP)."""
+    model = (seeded_videollama(vl_config()) if llm == "videollama"
+             else seeded_model(f32_config(llm)))
     flat = flax_params(model, stacked=stacked)
     tree = jax_tree(model) if not stacked else None
     if tree is None:
@@ -164,6 +185,9 @@ def test_partition_specs_match_param_shardings(shape, llm, stacked):
         assert sorted(got) == sorted(want)
         assert got == want
     assert any("model" in s for s in got.values())
+    if llm == "videollama":
+        assert got["llm/layer_0/attn/q_proj/bias"] == ()
+        assert all(s == () for k, s in got.items() if k.startswith(("connector/", "audio_proj/")))
 
 
 # ---------------------------------------------------------------------------
@@ -320,3 +344,111 @@ def test_allgather_results_ragged(out):
     JAX package's."""
     want = [{"qid": 0, "query": "émoji ✓"}, {"qid": 1}, {"qid": 2, "w": [[3, 9]]}, {"qid": 3}]
     assert all(r == want for r in _per_rank(out, "gather"))
+
+
+# ---------------------------------------------------------------------------
+# VideoLLaMA on the 2 x 2 run
+
+
+def _vl_one_device_tokens(name):
+    model = seeded_videollama(vl_config(VL_VARIANTS.get(name)))
+    if name == "lookup":
+        model.cfg = model.cfg.replace(lookup_spec=4)
+    return model.generate_submit(batch=global_batch()).numpy()
+
+
+@pytest.mark.parametrize("variant", [*VL_VARIANTS, "lookup"])
+def test_videollama_generate_matches_one_device_and_jax(out, variant):
+    """VideoLLaMA's 2 x 2 greedy tokens equal the port's one-device tokens
+    in the default routes, the Pallas routes, under ``kv_keep`` (SnapKV's
+    per-head sums added in rank order) and with ``lookup_spec=4``; each
+    cache the decoders allocate holds the rank's one KV head (the 2 KV
+    heads split, each repeated to its 2 query heads after the slice); in
+    the default routes the tokens equal JAX ``generate_submit``'s on a
+    2 x 2 mesh."""
+    per_rank = _per_rank(out, "vl_generate")
+    tokens = _mesh_tokens(per_rank, lambda r: r[variant]["tokens"])
+    np.testing.assert_array_equal(tokens, _vl_one_device_tokens(variant))
+    assert all(r[variant]["cache_kv_heads"] == [1] for r in per_rank)
+    if variant == "default":
+        cfg = vl_config()
+        jm = j_build_model(_jax_cfg(cfg))
+        mesh = j_make_mesh(JMeshConfig(data=2, model=2))
+        tree = jax.tree_util.tree_map(jax.numpy.asarray, jax_tree(seeded_videollama(cfg)))
+        with jax.set_mesh(mesh):
+            j_tokens = np.asarray(jm.generate_submit(j_shard_params(tree, mesh), global_batch()))
+        np.testing.assert_array_equal(tokens, j_tokens)
+
+
+def test_videollama_loss_and_grads_match_jax_sharded(out):
+    """VideoLLaMA's 2 x 2 loss and gradients (as the trainer takes them)
+    against JAX's ``value_and_grad`` on one device and on a 2 x 2 mesh,
+    with the same crops; the connector's and audio projector's gradients
+    whole within each model group and equal on every rank."""
+    import re
+
+    cfg = vl_config()
+    model = seeded_videollama(cfg)
+    jm = j_build_model(_jax_cfg(cfg))
+    crop = np.asarray(json.load(open(out / "crop.json")), np.float32)
+    arrays = [jax.numpy.asarray(a) for a in model.loss_arrays(global_batch())]
+    mesh = j_make_mesh(JMeshConfig(data=2, model=2))
+    got = np.load(out / "vl_loss.npz")
+
+    def value_and_grads(params):
+        trainable, frozen = j_split(params, model.TRAINABLE_PATTERN)
+        value, grads = jax.value_and_grad(lambda tr: jm._loss_fn(
+            j_merge(tr, frozen), *arrays, crop_params=crop, n_frms=4))(trainable)
+        return np.asarray(value), {"/".join(k): np.asarray(v) for k, v in grads.items()}
+
+    one = value_and_grads(jax_tree(model))
+    with jax.set_mesh(mesh):
+        sharded = value_and_grads(j_shard_params(jax_tree(model), mesh))
+    for (value, grads), lora_bound, bf16_bound in ((one, 1e-4, 2.0 ** -6),
+                                                    (sharded, 3e-2, 3e-2)):
+        np.testing.assert_allclose(got["loss"], value, rtol=1e-5)
+        assert sorted(grads) == sorted(k.replace("|", "/") for k in got.files if k != "loss")
+        assert any(k.startswith("connector/") for k in grads)
+        for k, g in grads.items():
+            bound = bf16_bound if re.match(r"(connector|audio_proj)/", k) else lora_bound
+            assert np.abs(got[k.replace("/", "|")] - g).max() <= bound * np.abs(g).max(), k
+    ranks = [np.load(out / f"vl_replicated_{r}.npz") for r in range(4)]
+    assert len(ranks[0].files) == 16
+    for k in ranks[0].files:
+        if k.startswith("local|"):      # ranks (d, 0) and (d, 1) hold the same whole gradient
+            assert np.array_equal(ranks[0][k], ranks[1][k]) and np.array_equal(ranks[2][k],
+                                                                               ranks[3][k]), k
+        else:
+            assert all(np.array_equal(ranks[0][k], r[k]) for r in ranks[1:]), k
+            np.testing.assert_array_equal(ranks[0][k], got[k[len("summed|"):]])
+
+
+def test_videollama_trainer_on_the_mesh_matches_one_device(out):
+    """One epoch of the VideoLLaMA trainer on 2 x 2 against the port on one
+    device: losses within rel 1e-6, the LoRA leaves within 1e-5 of their
+    largest |leaf|; the connector's and audio projector's gradients are
+    bf16 products fed by an input gradient that the model ranks sum in
+    another order, so those leaves, and the gradients' global norm that
+    carries them (each replicated leaf counted once), are held at C.5's
+    2^-6 (on this model 4.4e-3 of a leaf's largest |leaf| and 1.1e-4 of
+    the norm); the connector and audio projector moved and equal, bit
+    for bit, on every rank."""
+    mesh_run, single = out / "vl_train_mesh", out / "vl_train_single"
+    steps = _events(mesh_run, "train_step")
+    assert len(steps) == 2
+    np.testing.assert_allclose([e["loss"] for e in steps],
+                               [e["loss"] for e in _events(single, "train_step")], rtol=1e-6)
+    np.testing.assert_allclose([e["grad_norm"] for e in steps],
+                               [e["grad_norm"] for e in _events(single, "train_step")],
+                               rtol=2.0 ** -6)
+    final, want = _leaves(mesh_run / "checkpoint_0"), _leaves(single / "checkpoint_0")
+    assert sorted(final) == sorted(want)
+    for k, v in want.items():
+        bound = 2.0 ** -6 if k.startswith(("connector/", "audio_proj/")) else 1e-5
+        assert (final[k] - v).abs().max() <= bound * v.abs().max(), k
+    start = {k: p.detach() for k, p in seeded_videollama(vl_config()).named_parameters()}
+    ranks = [np.load(out / f"vl_train_leaves_{r}.npz") for r in range(4)]
+    assert len(ranks[0].files) == 8
+    for k in ranks[0].files:
+        assert all(np.array_equal(ranks[0][k], r[k]) for r in ranks[1:]), k
+        assert not np.array_equal(ranks[0][k], start[torch_name(tuple(k.split("|")))].numpy()), k

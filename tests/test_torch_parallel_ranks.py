@@ -90,6 +90,40 @@ def rows_of(batch, mesh):
     return type(batch)(**{f: getattr(batch, f)[part] for f in batch.__dataclass_fields__})
 
 
+# the tiny VideoLLaMA on the mesh: grouped-query attention (4 query heads
+# over 2 KV heads, so 2 over 1 per rank at model = 2) and q/k/v biases, the
+# 2.1-AV decoder's features, tiling the model axis
+VL_LLM = dict(num_kv_heads=2, attention_bias=True)
+# its decoder overrides under which the mesh's tokens are held
+VL_VARIANTS = {
+    "default": {},
+    "pallas": dict(attention_impl="pallas", decode_gemv="pallas", prefill_chunk=0),
+    "kv_keep": dict(kv_keep=40, kv_keep_obs=8),
+}
+
+
+def vl_config(llm=None) -> RunConfig:
+    """The tiny VideoLLaMA (``--model VideoLLaMA`` of the tiny assembly
+    config) in f32 with :data:`VL_LLM` and decoder overrides ``llm``."""
+    return RunConfig(model_name="VideoLLaMA", model=f32_config({**VL_LLM, **(llm or {})}),
+                     data=tiny_data_config(n_frms=4))
+
+
+def seeded_videollama(cfg: RunConfig, seed=3):
+    """The port's VideoLLaMA of ``cfg`` on the CPU with seeded weights and a
+    non-zero LoRA B and decoder biases."""
+    from mraudio_tpu_torch.models.factory import build_model
+
+    model = build_model(cfg, "cpu")
+    init_random_(model, seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("lora_b") or (name.endswith("bias") and name.startswith("llm.")):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+    return model
+
+
 def trainer_config(out, train_ann, val_ann, mesh=None, **train):
     kw = dict(max_epoch=2, batch_size=2, warmup_steps=2, accum_grad_iters=2, lr=LR,
               output_dir=str(out), val_freq=1, save_freq=1, num_workers=1)
@@ -240,6 +274,86 @@ def mesh_errors(out, mesh, rank):
     json.dump(msgs, open(f"{out}/mesh_errors_{rank}.json", "w"))
 
 
+def vl_generate(out, mesh, rank):
+    """VideoLLaMA's greedy tokens of this data rank's rows under every
+    :data:`VL_VARIANTS` entry and with ``lookup_spec=4``, and the KV heads
+    of each cache the decoders allocate (this rank's only)."""
+    from mraudio_tpu_torch.infer import generate as gen_mod
+
+    heads = []
+    real = gen_mod.init_cache
+
+    def recording(cfg, *a, **kw):
+        cache = real(cfg, *a, **kw)
+        heads.append(int(cache[0]["k"].shape[2]))
+        return cache
+
+    gen_mod.init_cache = recording
+    res = {}
+    for name, llm in {**VL_VARIANTS, "lookup": {}}.items():
+        model = seeded_videollama(vl_config(llm))
+        if name == "lookup":
+            model.cfg = model.cfg.replace(lookup_spec=4)
+        parallel.shard_module_(model, mesh)
+        heads.clear()
+        tokens = model.generate_submit(batch=rows_of(global_batch(), mesh))
+        res[name] = {"tokens": tokens.tolist(), "cache_kv_heads": sorted(set(heads))}
+    gen_mod.init_cache = real
+    json.dump(res, open(f"{out}/vl_generate_{rank}.json", "w"))
+
+
+def vl_loss(out, mesh, rank):
+    """VideoLLaMA's loss of the global batch and its full gradients, taken
+    as the trainer takes them; every rank also saves its connector's and
+    audio projector's gradients before and after the sum over the data
+    ranks (replicated leaves fed by the sharded decoder's input
+    gradient)."""
+    import re
+
+    from mraudio_tpu_torch.models.convert_jax import flax_params, torch_name
+
+    model = seeded_videollama(vl_config())
+    names = [k for k in flax_params(model, stacked=False)
+             if re.search(model.TRAINABLE_PATTERN, k)]
+    specs = parallel.shard_module_(model, mesh)
+    crop = np.asarray(json.load(open(f"{out}/crop.json")), np.float32)
+    lb = BATCH // mesh.data
+    value, grads = grads_of(model, rows_of(global_batch(), mesh), names,
+                            torch.from_numpy(crop[mesh.data_index * lb:][:lb]))
+    leaf_specs = {k: specs[torch_name(tuple(k.split("/")))] for k in grads}
+    partial = [k for k in grads if k.startswith("llm/") and "model" not in leaf_specs[k]]
+    replicated = [k for k in grads if not k.startswith("llm/")]
+    mine = {"local|" + k.replace("/", "|"): grads[k].clone().numpy() for k in replicated}
+    comm.all_reduce_sum_(grads, partial, mesh.model_group)
+    comm.all_reduce_sum_(grads, list(grads), mesh.data_group)
+    mine.update({"summed|" + k.replace("/", "|"): grads[k].numpy() for k in replicated})
+    np.savez(f"{out}/vl_replicated_{rank}.npz", **mine)
+    grads = parallel.gather_params(grads, mesh, leaf_specs)
+    value = comm.all_reduce_sum(value.detach(), mesh.data_group)
+    if rank == 0:
+        np.savez(f"{out}/vl_loss.npz", loss=value.numpy(),
+                 **{k.replace("/", "|"): v.numpy() for k, v in grads.items()})
+
+
+def vl_train(out, mesh, rank):
+    """One epoch of the VideoLLaMA trainer on the mesh; every rank saves
+    its connector's and audio projector's leaves afterwards."""
+    from mraudio_tpu_torch.train.trainer import Trainer
+
+    cfg = vl_trainer_config(f"{out}/vl_train_mesh", f"{out}/train.jsonl", f"{out}/val.jsonl",
+                            mesh=MeshConfig(mesh.data, mesh.model))
+    trainer = Trainer(cfg, model=seeded_videollama(cfg), device="cpu")
+    trainer.train()
+    np.savez(f"{out}/vl_train_leaves_{rank}.npz",
+             **{k.replace("/", "|"): p.detach().numpy() for k, p in trainer.trainable.items()
+                if not k.startswith("llm/")})
+
+
+def vl_trainer_config(out, train_ann, val_ann, mesh=None) -> RunConfig:
+    return trainer_config(out, train_ann, val_ann, mesh, max_epoch=1).replace(
+        model_name="VideoLLaMA", model=vl_config().model)
+
+
 def seq_layers(out, mesh, rank):
     """The decoder alone (``test_torch_seq_shard.py``): outputs and
     gradients with and without ``seq_shard`` on this mesh's model axis,
@@ -277,7 +391,7 @@ def seq_layers(out, mesh, rank):
 
 
 SCENARIOS = {f.__name__: f for f in (generate, decoders, loss, train, infer, gather, mesh_errors,
-                                     seq_layers)}
+                                     seq_layers, vl_generate, vl_loss, vl_train)}
 
 
 def main(out, data, model, scenarios):

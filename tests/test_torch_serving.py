@@ -598,12 +598,13 @@ def test_cli_unported_flags_raise(ann_file, tmp_path, flag, fabricated, monkeypa
                                  "--params-store": (True, True, True)}[flag[0]]
 
 
-@pytest.mark.parametrize("what, item", [("mesh", "A.7"), ("llm_weights", "A.8")])
+@pytest.mark.parametrize("what, item", [("mesh", "C.3"), ("llm_weights", "A.8")])
 def test_cli_config_asking_unported_raises(ann_file, tmp_path, what, item, fabricated,
                                            monkeypatch):
-    """A JAX package YAML with a tensor-parallel mesh (the reference's
-    serving on a TP mesh) is refused; one naming converted LLM weights
-    (the item that ported them) serves with them."""
+    """A JAX package YAML with a tensor-parallel mesh is refused as a known
+    difference (the JAX serve CLI ignores the mesh and serves on one
+    device; the port refuses the field rather than ignore it); one naming
+    converted LLM weights (the item that ported them) serves with them."""
     from mraudio_tpu.config import MeshConfig as JMeshConfig
     from mraudio_tpu.config import RunConfig as JRunConfig
 
