@@ -1418,12 +1418,12 @@ def drive_engine(engine, requests: list, cancel_id=None, trace: bool = False):
     """Run ``requests`` through the engine, admitting what fits whenever a
     slot is free; ``cancel_id`` is cancelled after its first token.
     Returns ``(tokens by request id, decode dispatches, seconds)``."""
-    from torch.profiler import record_function
+    from mraudio_tpu_torch.utils.profiling import annotate
 
     pending, results, dispatches = list(requests), {}, 0
     torch.cuda.synchronize()
     t = time.perf_counter()
-    with record_function("engine") if trace else contextlib.nullcontext():
+    with annotate("engine") if trace else contextlib.nullcontext():
         while (pending or engine.active.any() or engine._inflight
                or engine.admission_pending()):
             if pending and engine.free_slots():

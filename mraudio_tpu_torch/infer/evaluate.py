@@ -15,6 +15,10 @@ writes for the same weights:
   ``parse_write`` (``generate_finalize``'s detokenization, span parsing
   and the records).
 
+Each wait for the loader's next batch, with its copy to the device, is
+a ``load`` profiler span: one per batch and one more for the end of the
+stream.
+
 The loop keeps the reference's two-deep structure (batch ``i+1`` is
 loaded and submitted before batch ``i``'s strings are decoded and
 written), but ``generate_submit`` blocks here: its decode loop reads one
@@ -39,7 +43,7 @@ from mraudio_tpu_torch.data.annotations import chunk_annotations, load_annotatio
 from mraudio_tpu_torch.data.dataset import BatchLoader, MRDataset
 from mraudio_tpu_torch.parallel import comm, local_batch_size, mesh_for, shard_module_
 from mraudio_tpu_torch.text.postprocess import moment_str_to_list, post_process
-from mraudio_tpu_torch.utils.profiling import StageTimes, profile_to
+from mraudio_tpu_torch.utils.profiling import StageTimes, annotate, profile_to
 
 logger = logging.getLogger("mraudio_tpu_torch")
 
@@ -188,15 +192,21 @@ def run_inference(
         batches: list[dict] = []
         start = time.time()
         it = iter(loader)
-        current = next(it, None)
-        dev = model.device_inputs(current) if current is not None else None
+
+        def load():
+            """The loader's next batch and its device inputs, or
+            ``(None, None)`` at the end, inside the ``load`` span."""
+            with annotate("load"):
+                batch = next(it, None)
+                return batch, (model.device_inputs(batch) if batch is not None else None)
+
+        current, dev = load()
         inflight = None  # (batch, its first annotation, pending)
         first = rows[0] if rows else 0
         while current is not None or inflight is not None:
             if current is not None:
                 batch, batch_dev = current, dev
-                current = next(it, None)
-                dev = model.device_inputs(current) if current is not None else None
+                current, dev = load()
                 stats = {}
                 with times.stage("generate", items=int(batch.valid.sum())):
                     pending = model.generate_submit(batch=batch, device_inputs=batch_dev,

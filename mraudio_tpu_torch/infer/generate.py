@@ -6,7 +6,9 @@ segments of ``cfg.prefill_chunk`` tokens (one pass when 0 or when the
 prefix fits); then a Python loop runs one model pass per iteration until
 every row has finished or the token budget is spent — one host check per
 pass.  Finished rows keep emitting EOS, so the output buffer's tail is
-EOS-filled.
+EOS-filled.  Inside each decoder's ``decode`` profiler span, each pass's
+launches and token bookkeeping are a ``decode.pass`` span and each host
+check a ``decode.sync`` span (``utils/profiling.py`` lists the spans).
 
 Every decoder allocates ``s + max_new_tokens + MAX_SPEC_WIDTH`` cache
 columns (the speculative drafts may overhang the budget by up to their
@@ -28,10 +30,10 @@ from __future__ import annotations
 import time
 
 import torch
-from torch.profiler import record_function
 
 from mraudio_tpu_torch.models.layers import NEG_INF
 from mraudio_tpu_torch.models.llama import LlamaModel, compact_cache, init_cache
+from mraudio_tpu_torch.utils.profiling import annotate
 
 # the widest speculative draft (one query tile of chunked_attention)
 MAX_SPEC_WIDTH = 16
@@ -91,7 +93,7 @@ def _prefill(model: LlamaModel, prefix_embeds, prefix_mask, max_new_tokens: int,
     dev = prefix_embeds.device
     alloc_len = s + max_new_tokens + MAX_SPEC_WIDTH
     t0 = time.perf_counter()
-    with record_function("prefill"):
+    with annotate("prefill"):
         positions = (torch.cumsum(prefix_mask.to(torch.int32), dim=-1) - 1).clamp_min(0)
         full_mask = torch.zeros((b, alloc_len), dtype=torch.int32, device=dev)
         full_mask[:, :s] = prefix_mask
@@ -113,6 +115,13 @@ def _prefill(model: LlamaModel, prefix_embeds, prefix_mask, max_new_tokens: int,
     return positions[:, -1], full_mask, cache, last_logits, t1, s
 
 
+def _finished(done) -> bool:
+    """The per-pass host check that every row has finished, inside the
+    ``decode.sync`` span: the host waits here for the pass it launched."""
+    with annotate("decode.sync"):
+        return bool(done.all())
+
+
 def _decode_stats(stats: dict | None, dev, t1: float, passes: int, emitted=None) -> None:
     if stats is not None:
         _sync(dev)
@@ -132,26 +141,30 @@ def greedy_generate(model: LlamaModel, prefix_embeds, prefix_mask,
     ``prefill_segments``, ``decode_steps``
     (decoder calls after the prefill) and ``prefill_logits`` (the f32
     last-position logits that seed the decode).  The two phases run
-    inside profiler spans named ``prefill`` and ``decode``."""
+    inside profiler spans named ``prefill`` and ``decode``, the latter
+    holding one ``decode.pass`` span per decoder call and a
+    ``decode.sync`` span per host check."""
     b = prefix_embeds.shape[0]
     dev = prefix_embeds.device
     cur_pos, mask, cache, last_logits, t1, s = _prefill(model, prefix_embeds, prefix_mask,
                                                         max_new_tokens, stats)
     cur_id = last_logits.argmax(dim=-1).to(torch.int32)
-    with record_function("decode"):
+    with annotate("decode"):
         tokens = torch.full((b, max_new_tokens), eos_id, dtype=torch.int32, device=dev)
         done = torch.zeros(b, dtype=torch.bool, device=dev)
         t = 0
-        while t < max_new_tokens and not bool(done.all()):
-            tokens[:, t] = torch.where(done, eos_id, cur_id)
-            mask[:, s + t] = 1
-            embeds = model.embed(cur_id[:, None])
-            logits, cache = model(embeds, mask[:, None, None, :].bool(), (cur_pos + 1)[:, None],
-                                  cache=cache, cache_index=s + t, kv_valid=mask)
-            nxt = logits[:, -1].argmax(dim=-1).to(torch.int32)
-            done = done | (cur_id == eos_id)
-            cur_id = torch.where(done, eos_id, nxt)
-            cur_pos = cur_pos + 1
+        while t < max_new_tokens and not _finished(done):
+            with annotate("decode.pass"):
+                tokens[:, t] = torch.where(done, eos_id, cur_id)
+                mask[:, s + t] = 1
+                embeds = model.embed(cur_id[:, None])
+                logits, cache = model(embeds, mask[:, None, None, :].bool(),
+                                      (cur_pos + 1)[:, None], cache=cache, cache_index=s + t,
+                                      kv_valid=mask)
+                nxt = logits[:, -1].argmax(dim=-1).to(torch.int32)
+                done = done | (cur_id == eos_id)
+                cur_id = torch.where(done, eos_id, nxt)
+                cur_pos = cur_pos + 1
             t += 1
         _decode_stats(stats, dev, t1, t)
     return tokens
@@ -229,7 +242,7 @@ def grammar_generate(model: LlamaModel, prefix_embeds, prefix_mask, max_new_toke
         ok = torch.where(ok.any(dim=-1, keepdim=True), ok, al)
         return torch.where(ok, logits_bv, NEG_INF).argmax(dim=-1).to(torch.int32)
 
-    with record_function("decode"):
+    with annotate("decode"):
         start = torch.zeros(b, dtype=torch.int32, device=dev)         # the DFA's start state
         cur_id = masked_pick(start, last_logits,
                              torch.full((b,), max_new_tokens, dtype=torch.int64, device=dev))
@@ -238,38 +251,40 @@ def grammar_generate(model: LlamaModel, prefix_embeds, prefix_mask, max_new_toke
         emitted = torch.zeros(b, dtype=torch.int64, device=dev)
         done = torch.zeros(b, dtype=torch.bool, device=dev)
         it = 0
-        while it < max_new_tokens and not bool(done.all()):
-            # 1. the draft: the free token, then grammar-forced tokens
-            draft, states = [cur_id], [g]
-            ok = ~done
-            cur_g = g
-            n_valid = ok.to(torch.int64)
-            for _ in range(w - 1):
-                f = forced[cur_g]
-                ok = ok & (f >= 0)
-                draft.append(torch.where(ok, f, eos_id))
-                cur_g = torch.where(ok, next_state[cur_g, f.clamp_min(0)], cur_g)
-                states.append(cur_g)
-                n_valid = n_valid + ok
-            draft_ids = torch.stack(draft, dim=1)                      # (B, W)
-            states_arr = torch.stack(states, dim=1)
-            accept = torch.minimum(n_valid, max_new_tokens - emitted)
-            # 2. one pass over the draft positions
-            hidden, cache, cols = _draft_pass(model, cache, mask, draft_ids, s, emitted,
-                                              cur_pos, return_hidden=True)
-            # 3. commit; the next free token comes from the last accepted
-            #    position's logits
-            commit = _commit(tokens, mask, draft_ids, cols, emitted, accept, eos_id)
-            last = (accept - 1).clamp_min(0)
-            g_last = states_arr.gather(1, last[:, None])[:, 0]
-            h_last = hidden.gather(1, last[:, None, None].expand(-1, 1, hidden.shape[-1]))
-            logit_last = model.logits(h_last)[:, 0]
-            emitted = emitted + accept
-            nxt = masked_pick(g_last, logit_last, max_new_tokens - emitted)
-            done = done | (commit & (draft_ids == eos_id)).any(dim=1) | (emitted >= max_new_tokens)
-            cur_id = torch.where(done, eos_id, nxt)
-            g = torch.where(done, g_last, next_state[g_last, cur_id])
-            cur_pos = cur_pos + accept
+        while it < max_new_tokens and not _finished(done):
+            with annotate("decode.pass"):
+                # 1. the draft: the free token, then grammar-forced tokens
+                draft, states = [cur_id], [g]
+                ok = ~done
+                cur_g = g
+                n_valid = ok.to(torch.int64)
+                for _ in range(w - 1):
+                    f = forced[cur_g]
+                    ok = ok & (f >= 0)
+                    draft.append(torch.where(ok, f, eos_id))
+                    cur_g = torch.where(ok, next_state[cur_g, f.clamp_min(0)], cur_g)
+                    states.append(cur_g)
+                    n_valid = n_valid + ok
+                draft_ids = torch.stack(draft, dim=1)                  # (B, W)
+                states_arr = torch.stack(states, dim=1)
+                accept = torch.minimum(n_valid, max_new_tokens - emitted)
+                # 2. one pass over the draft positions
+                hidden, cache, cols = _draft_pass(model, cache, mask, draft_ids, s, emitted,
+                                                  cur_pos, return_hidden=True)
+                # 3. commit; the next free token comes from the last
+                #    accepted position's logits
+                commit = _commit(tokens, mask, draft_ids, cols, emitted, accept, eos_id)
+                last = (accept - 1).clamp_min(0)
+                g_last = states_arr.gather(1, last[:, None])[:, 0]
+                h_last = hidden.gather(1, last[:, None, None].expand(-1, 1, hidden.shape[-1]))
+                logit_last = model.logits(h_last)[:, 0]
+                emitted = emitted + accept
+                nxt = masked_pick(g_last, logit_last, max_new_tokens - emitted)
+                done = (done | (commit & (draft_ids == eos_id)).any(dim=1)
+                        | (emitted >= max_new_tokens))
+                cur_id = torch.where(done, eos_id, nxt)
+                g = torch.where(done, g_last, next_state[g_last, cur_id])
+                cur_pos = cur_pos + accept
             it += 1
         _decode_stats(stats, dev, t1, it, emitted)
     return tokens[:, :max_new_tokens]
@@ -337,33 +352,34 @@ def lookup_generate(model: LlamaModel, prefix_embeds, prefix_mask, max_new_token
     cur_pos, mask, cache, last_logits, t1, s = _prefill(model, prefix_embeds, prefix_mask,
                                                         max_new_tokens, stats)
     cur_id = last_logits.argmax(dim=-1).to(torch.int32)
-    with record_function("decode"):
+    with annotate("decode"):
         tokens = torch.full((b, max_new_tokens + w), eos_id, dtype=torch.int32, device=dev)
         emitted = torch.zeros(b, dtype=torch.int64, device=dev)
         done = torch.zeros(b, dtype=torch.bool, device=dev)
         it = 0
-        while it < max_new_tokens and not bool(done.all()):
-            guesses = lookup_draft(tokens, emitted, cur_id, w, hint_ids, hint_mask)
-            draft_ids = torch.cat([cur_id[:, None], guesses], dim=1)  # (B, W)
-            logits, cache, cols = _draft_pass(model, cache, mask, draft_ids, s, emitted,
-                                              cur_pos, return_hidden=False)
-            model_next = logits.argmax(dim=-1).to(torch.int32)         # (B, W)
-            # draft[i + 1] commits iff it is the model's argmax after
-            # draft[i] and everything before it committed
-            agree = model_next[:, :w - 1] == draft_ids[:, 1:]
-            n_agree = torch.cumprod(agree.to(torch.int64), dim=1).sum(dim=1)
-            budget = (max_new_tokens - emitted).clamp_min(0)
-            accept = torch.where(done, 0, torch.minimum(1 + n_agree, budget))
-            is_eos = draft_ids == eos_id
-            first_eos_len = (torch.cumsum(is_eos.to(torch.int64), dim=1) == 0).sum(dim=1) + 1
-            accept = torch.minimum(accept, first_eos_len)
-            commit = _commit(tokens, mask, draft_ids, cols, emitted, accept, eos_id)
-            last = (accept - 1).clamp_min(0)
-            nxt = model_next.gather(1, last[:, None])[:, 0]
-            emitted = emitted + accept
-            done = done | (commit & is_eos).any(dim=1) | (emitted >= max_new_tokens)
-            cur_id = torch.where(done, eos_id, nxt)
-            cur_pos = cur_pos + accept
+        while it < max_new_tokens and not _finished(done):
+            with annotate("decode.pass"):
+                guesses = lookup_draft(tokens, emitted, cur_id, w, hint_ids, hint_mask)
+                draft_ids = torch.cat([cur_id[:, None], guesses], dim=1)   # (B, W)
+                logits, cache, cols = _draft_pass(model, cache, mask, draft_ids, s, emitted,
+                                                  cur_pos, return_hidden=False)
+                model_next = logits.argmax(dim=-1).to(torch.int32)     # (B, W)
+                # draft[i + 1] commits iff it is the model's argmax after
+                # draft[i] and everything before it committed
+                agree = model_next[:, :w - 1] == draft_ids[:, 1:]
+                n_agree = torch.cumprod(agree.to(torch.int64), dim=1).sum(dim=1)
+                budget = (max_new_tokens - emitted).clamp_min(0)
+                accept = torch.where(done, 0, torch.minimum(1 + n_agree, budget))
+                is_eos = draft_ids == eos_id
+                first_eos_len = (torch.cumsum(is_eos.to(torch.int64), dim=1) == 0).sum(dim=1) + 1
+                accept = torch.minimum(accept, first_eos_len)
+                commit = _commit(tokens, mask, draft_ids, cols, emitted, accept, eos_id)
+                last = (accept - 1).clamp_min(0)
+                nxt = model_next.gather(1, last[:, None])[:, 0]
+                emitted = emitted + accept
+                done = done | (commit & is_eos).any(dim=1) | (emitted >= max_new_tokens)
+                cur_id = torch.where(done, eos_id, nxt)
+                cur_pos = cur_pos + accept
             it += 1
         _decode_stats(stats, dev, t1, it, emitted)
     return tokens[:, :max_new_tokens]

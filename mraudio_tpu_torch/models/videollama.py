@@ -35,7 +35,6 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from mraudio_tpu_torch.config import (AudioFrontendConfig, BeatsConfig, LlamaConfig, LoraConfig,
                                       ViTConfig, _ConfigBase)
@@ -49,6 +48,7 @@ from mraudio_tpu_torch.models.xinstructblip import XInstructBLIP
 from mraudio_tpu_torch.ops.fbank import beats_frontend
 from mraudio_tpu_torch.ops.image import augment_and_normalize, normalize_frames
 from mraudio_tpu_torch.text.tokenizer import ByteTokenizer
+from mraudio_tpu_torch.utils.profiling import annotate
 
 
 @dataclass(frozen=True)
@@ -209,22 +209,27 @@ class VideoLLaMA(nn.Module):
 
     def _prefix(self, video_u8, audio_wave, n_frms: int, crop_params=None):
         """Video and audio → (prefix (B, S_prefix, D), mask (B, S_prefix)):
-        the connector's tokens, then one token per audio chunk."""
+        the connector's tokens, then one token per audio chunk.  Each
+        tower runs inside a profiler span, ``encode.video`` or
+        ``encode.audio``."""
         cfg = self.cfg
-        if crop_params is not None:
-            frames = augment_and_normalize(video_u8, crop_params, cfg.vit.image_size,
-                                           dtype=torch_dtype(cfg.vit.dtype))
-        else:
-            frames = normalize_frames(video_u8, dtype=torch_dtype(cfg.vit.dtype),
-                                      mean=cfg.image_mean, std=cfg.image_std)
-        b, t = frames.shape[:2]
-        feats = self.vit(frames.reshape((b * t,) + frames.shape[2:]))
-        patch = feats[:, 1:] if cfg.vit.use_class_token else feats
-        video_tokens = self.connector(patch.reshape(b, t, patch.shape[1], cfg.vit.width))
+        with annotate("encode.video"):
+            if crop_params is not None:
+                frames = augment_and_normalize(video_u8, crop_params, cfg.vit.image_size,
+                                               dtype=torch_dtype(cfg.vit.dtype))
+            else:
+                frames = normalize_frames(video_u8, dtype=torch_dtype(cfg.vit.dtype),
+                                          mean=cfg.image_mean, std=cfg.image_std)
+            b, t = frames.shape[:2]
+            feats = self.vit(frames.reshape((b * t,) + frames.shape[2:]))
+            patch = feats[:, 1:] if cfg.vit.use_class_token else feats
+            video_tokens = self.connector(patch.reshape(b, t, patch.shape[1], cfg.vit.width))
 
-        fbank = beats_frontend(audio_wave, self.audio_cfg, n_frms)
-        audio_feats = self.beats(fbank.reshape((b * n_frms,) + fbank.shape[2:]))
-        audio_tokens = self.audio_proj(audio_feats.reshape(b, n_frms, -1, cfg.beats.width))
+        with annotate("encode.audio"):
+            fbank = beats_frontend(audio_wave, self.audio_cfg, n_frms)
+            audio_feats = self.beats(fbank.reshape((b * n_frms,) + fbank.shape[2:]))
+            audio_tokens = self.audio_proj(audio_feats.reshape(b, n_frms, -1,
+                                                               cfg.beats.width))
 
         prefix = torch.cat([video_tokens, audio_tokens], dim=1)
         return prefix, torch.ones(prefix.shape[:2], dtype=torch.int32, device=prefix.device)
@@ -259,7 +264,7 @@ class VideoLLaMA(nn.Module):
         cfg = self.cfg
         dev = self.device
         t0 = time.perf_counter()
-        with record_function("encode"):
+        with annotate("encode"):
             n_frms = batch.timestamps.shape[1]
             video_dev, audio_dev = device_inputs or self.device_inputs(batch)
             prefix, pmask = self._prefix(video_dev, audio_dev, n_frms)

@@ -31,7 +31,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from mraudio_tpu_torch.config import AudioFrontendConfig, XInstructBLIPConfig
@@ -49,6 +48,7 @@ from mraudio_tpu_torch.ops.image import (augment_and_normalize, normalize_frames
 from mraudio_tpu_torch.parallel import comm
 from mraudio_tpu_torch.text.prompts import MODALITY_CUES
 from mraudio_tpu_torch.text.tokenizer import ByteTokenizer
+from mraudio_tpu_torch.utils.profiling import annotate
 
 
 class _Ln(nn.Module):
@@ -283,33 +283,39 @@ class XInstructBLIP(nn.Module):
         (``ops/image.py::augment_and_normalize``); None is the eval
         preprocessing.  Encoder kernels stored int8 (``--quant-encoders``,
         ``train.quant_frozen``; ``models/quant_tree.py``) dequantize as
-        they are read."""
+        they are read.  Each tower runs inside a profiler span,
+        ``encode.video`` or ``encode.audio``."""
         cfg = self.cfg
         out = {}
         if "video" in cfg.modalities:
-            b, t = video_u8.shape[:2]
-            if cfg.video_wire == "yuv420":
-                video_u8 = yuv420_to_rgb(video_u8)     # the I420 wire → f32 RGB
-            if crop_params is not None:
-                frames = augment_and_normalize(video_u8, crop_params, cfg.vit.image_size,
-                                               dtype=torch_dtype(cfg.vit.dtype))
-            else:
-                frames = normalize_frames(video_u8, dtype=torch_dtype(cfg.vit.dtype))
-            folded = frames.reshape((b * t,) + frames.shape[2:])
-            # the temporal-residual ViT needs whole clips in each pass
-            per = self._frames_per_pass(b, t, cfg.vit.keyframe_interval == 1)
-            feats = torch.cat([self.vit(folded[i:i + per], n_frms=t)
-                               for i in range(0, b * t, per)])
-            feats = self.video_ln(feats)
-            out["video"] = self._qformer_project("video", feats, b, t, qformer_ids, qformer_mask)
+            with annotate("encode.video"):
+                b, t = video_u8.shape[:2]
+                if cfg.video_wire == "yuv420":
+                    video_u8 = yuv420_to_rgb(video_u8)     # the I420 wire → f32 RGB
+                if crop_params is not None:
+                    frames = augment_and_normalize(video_u8, crop_params, cfg.vit.image_size,
+                                                   dtype=torch_dtype(cfg.vit.dtype))
+                else:
+                    frames = normalize_frames(video_u8, dtype=torch_dtype(cfg.vit.dtype))
+                folded = frames.reshape((b * t,) + frames.shape[2:])
+                # the temporal-residual ViT needs whole clips in each pass
+                per = self._frames_per_pass(b, t, cfg.vit.keyframe_interval == 1)
+                feats = torch.cat([self.vit(folded[i:i + per], n_frms=t)
+                                   for i in range(0, b * t, per)])
+                feats = self.video_ln(feats)
+                out["video"] = self._qformer_project("video", feats, b, t, qformer_ids,
+                                                     qformer_mask)
         if "audio" in cfg.modalities:
-            fbank = beats_frontend(audio_wave, self.audio_cfg, n_frms)
-            b, t = fbank.shape[:2]
-            folded = fbank.reshape((b * t,) + fbank.shape[2:])
-            per = self._frames_per_pass(b, t, True)
-            feats = torch.cat([self.beats(folded[i:i + per]) for i in range(0, b * t, per)])
-            feats = self.audio_ln(feats)
-            out["audio"] = self._qformer_project("audio", feats, b, t, qformer_ids, qformer_mask)
+            with annotate("encode.audio"):
+                fbank = beats_frontend(audio_wave, self.audio_cfg, n_frms)
+                b, t = fbank.shape[:2]
+                folded = fbank.reshape((b * t,) + fbank.shape[2:])
+                per = self._frames_per_pass(b, t, True)
+                feats = torch.cat([self.beats(folded[i:i + per])
+                                   for i in range(0, b * t, per)])
+                feats = self.audio_ln(feats)
+                out["audio"] = self._qformer_project("audio", feats, b, t, qformer_ids,
+                                                     qformer_mask)
         return out
 
     def _qformer_project(self, modality, feats, b, t, qformer_ids, qformer_mask):
@@ -485,7 +491,7 @@ class XInstructBLIP(nn.Module):
         if params is not None:
             raise ValueError("the port's weights live in the module; pass params=None")
         t0 = time.perf_counter()
-        with record_function("encode"):
+        with annotate("encode"):
             n_frms = batch.timestamps.shape[1]
             text = self.prepare_text(batch.text_input, np.asarray(batch.timestamps),
                                      batch.duration)

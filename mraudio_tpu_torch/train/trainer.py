@@ -66,7 +66,6 @@ import signal
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from mraudio_tpu_torch.config import RunConfig
 from mraudio_tpu_torch.data.dataset import BatchLoader, MRDataset
@@ -82,6 +81,7 @@ from mraudio_tpu_torch.train.optim import (DEFAULT_TRAINABLE_PATTERN, build_opti
                                            global_grad_norm, lavis_warmup_cosine_schedule,
                                            split_trainable)
 from mraudio_tpu_torch.utils.logging import MetricLogger, SmoothedValue
+from mraudio_tpu_torch.utils.profiling import annotate
 from mraudio_tpu_torch.utils.runlog import RunLogger
 
 logger = logging.getLogger("mraudio_tpu_torch")
@@ -271,7 +271,7 @@ class Trainer:
         arrays, crop, key, n_frms = self._step_inputs(batch, self.global_step)
         if self.split_encode:
             return self._loss_step(self._encode(arrays, crop, n_frms), arrays, key)
-        with record_function("loss_fwd_bwd"):
+        with annotate("loss_fwd_bwd"):
             loss = model._loss_fn(*arrays, crop_params=crop, dropout_key=key, n_frms=n_frms)
             grads = self._grads(loss)
         return self._apply(loss, grads)
@@ -285,7 +285,7 @@ class Trainer:
         return arrays, self._sample_crops(batch, step), key, int(batch.timestamps.shape[1])
 
     def _encode(self, arrays, crop, n_frms) -> dict:
-        with record_function("encode"), torch.no_grad():
+        with annotate("encode"), torch.no_grad():
             return self.model._encode_modality_tokens(*arrays[:4], n_frms, crop_params=crop)
 
     def _grads(self, loss) -> dict:
@@ -308,14 +308,14 @@ class Trainer:
             loss = comm.all_reduce_sum(loss.detach(), self.mesh.data_group)
         norm = global_grad_norm(grads, self._model_sharded,
                                 None if self.mesh is None else self.mesh.model_group)
-        with record_function("optimizer"):
+        with annotate("optimizer"):
             good = torch.isfinite(loss) if self.cfg.train.nan_guard else None
             self.opt.step(self.trainable, grads, good)
         return loss.detach(), norm
 
     def _loss_step(self, modal: dict, arrays, key) -> tuple:
         """The LLM loss, its gradients and the update from encoded tokens."""
-        with record_function("loss_fwd_bwd"):
+        with annotate("loss_fwd_bwd"):
             loss = self.model._loss_from_tokens(modal, *arrays[4:], dropout_key=key)
             grads = self._grads(loss)
         return self._apply(loss, grads)
