@@ -196,6 +196,34 @@ class LlamaConfig(_ConfigBase):
     # model ranks (the last shard zero-padded when S does not tile); a
     # no-op without a model axis and for fewer than 2 tokens per rank.
     seq_shard: bool = False
+    # The port's own fields (the JAX package has neither mechanism; each
+    # default keeps today's dense decoder).  Attention: "gqa" (grouped-
+    # query or full multi-head, K and V per KV head in the cache) or "mla"
+    # (DeepSeek-V3 latent attention, models/mla.py: per token a
+    # kv_lora_rank latent and one qk_rope_head_dim roped key in the cache,
+    # shared by every head; queries qk_nope_head_dim + qk_rope_head_dim
+    # wide, values v_head_dim).  rope_interleave rotates (2i, 2i + 1)
+    # pairs instead of the two halves (read by "mla" only).
+    attention_kind: str = "gqa"
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    rope_interleave: bool = False
+    # Sparse experts (models/moe.py; 0 routed experts = every layer
+    # dense): from layer first_k_dense_replace on, each token goes to
+    # num_experts_per_tok of n_routed_experts SwiGLU experts of width
+    # moe_intermediate_size, chosen by DeepSeek-V3's sigmoid router, its
+    # weights renormalised (norm_topk_prob) and scaled by
+    # routed_scaling_factor, plus n_shared_experts experts every token
+    # passes through.
+    n_routed_experts: int = 0
+    num_experts_per_tok: int = 0
+    n_shared_experts: int = 0
+    moe_intermediate_size: int = 0
+    first_k_dense_replace: int = 0
+    routed_scaling_factor: float = 1.0
+    norm_topk_prob: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -205,6 +233,10 @@ class LlamaConfig(_ConfigBase):
     def padded_vocab_size(self) -> int:
         m = self.vocab_pad_multiple
         return -(-self.vocab_size // m) * m if m > 1 else self.vocab_size
+
+    def moe_layer(self, layer: int) -> bool:
+        """Whether decoder layer ``layer`` routes to sparse experts."""
+        return self.n_routed_experts > 0 and layer >= self.first_k_dense_replace
 
 
 @dataclass(frozen=True)

@@ -48,7 +48,7 @@ from mraudio_tpu_torch.utils.profiling import StageTimes, annotate, profile_to
 logger = logging.getLogger("mraudio_tpu_torch")
 
 _STAT_KEYS = ("prefix_len", "encode_s", "prefill_s", "prefill_segments", "decode_s",
-              "decode_steps", "decode_tokens")
+              "decode_steps", "decode_tokens", "moe_decode_experts", "moe_prefill_imbalance")
 
 
 def saliency_to_clip_grid(frame_times, scores, duration) -> list:
@@ -95,7 +95,8 @@ def run_inference(
 ) -> dict:
     """Returns ``{'records', 'clips_per_sec', 'batch_size', 'stages',
     'batches'}``: ``stages`` is the :class:`StageTimes` summary and
-    ``batches`` holds each batch's ``generate_submit`` stats.
+    ``batches`` holds each batch's ``generate_submit`` stats (with routed
+    experts, the routing counters too, which the log line also gives).
 
     Without ``model``, builds one on ``device`` with :func:`build_model`
     (seeded random weights and the checkpoints ``cfg`` names).  A config
@@ -254,9 +255,14 @@ def run_inference(
                 bs * 2, bs,
             )
     clips_per_sec = n_clips / elapsed if elapsed > 0 else 0.0
+    # the expert layers' routing counters, per batch (routed experts only)
+    routing = {k: [round(b[k], 4) for b in batches if k in b]
+               for k in ("moe_decode_experts", "moe_prefill_imbalance")}
+    routing = {k: v for k, v in routing.items() if v}
     logger.info(
-        "inference: %d clips in %.2fs (%.3f clips/sec); stages: %s",
+        "inference: %d clips in %.2fs (%.3f clips/sec); stages: %s%s",
         n_clips, elapsed, clips_per_sec, times.summary(),
+        f"; routing per batch: {routing}" if routing else "",
     )
 
     if output_file and main:

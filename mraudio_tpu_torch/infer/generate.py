@@ -10,6 +10,16 @@ EOS-filled.  Inside each decoder's ``decode`` profiler span, each pass's
 launches and token bookkeeping are a ``decode.pass`` span and each host
 check a ``decode.sync`` span (``utils/profiling.py`` lists the spans).
 
+A decoder that asks for it (``LlamaModel.decode_graph``: latent
+attention) decodes greedily by replaying a CUDA graph of one pass: the
+first pass runs eagerly on tensors the loop then updates in place (the
+cache column a (B,) tensor), is captured once, and every later pass is
+one replay, so the host no longer launches each pass's kernels.  The
+kernels, and so the tokens, are the eager pass's.  The eager loop runs
+instead on the CPU, while a profiler records (its spans need the host
+code that launches each kernel) and while a module of the decoder
+carries a forward hook (a replay runs no Python).
+
 Every decoder allocates ``s + max_new_tokens + MAX_SPEC_WIDTH`` cache
 columns (the speculative drafts may overhang the budget by up to their
 width; overhanging columns are written but never committed).  With one
@@ -85,7 +95,8 @@ def _prefill(model: LlamaModel, prefix_embeds, prefix_mask, max_new_tokens: int,
     """The shared prefill, inside the ``prefill`` profiler span: returns
     ``(last position (B,), cache-column mask (B, alloc_len), cache,
     last-position f32 logits (B, V), the clock at its end, the first
-    decode column)``.  Under ``cfg.kv_keep`` the cache comes compacted to
+    decode column)``; the expert layers' routing counters start anew here.
+    Under ``cfg.kv_keep`` the cache comes compacted to
     ``keep`` prefix columns (the first decode column), the mask covering
     them; each layer's ``valid`` leaf refines it.  ``stats`` receives
     ``prefill_s``, ``prefill_segments`` and ``prefill_logits``."""
@@ -93,6 +104,9 @@ def _prefill(model: LlamaModel, prefix_embeds, prefix_mask, max_new_tokens: int,
     dev = prefix_embeds.device
     alloc_len = s + max_new_tokens + MAX_SPEC_WIDTH
     t0 = time.perf_counter()
+    counters = getattr(model, "expert_counters", None)
+    if counters is not None:
+        counters.reset()
     with annotate("prefill"):
         positions = (torch.cumsum(prefix_mask.to(torch.int32), dim=-1) - 1).clamp_min(0)
         full_mask = torch.zeros((b, alloc_len), dtype=torch.int32, device=dev)
@@ -122,13 +136,96 @@ def _finished(done) -> bool:
         return bool(done.all())
 
 
-def _decode_stats(stats: dict | None, dev, t1: float, passes: int, emitted=None) -> None:
+def _decode_stats(stats: dict | None, model: LlamaModel, dev, t1: float, passes: int,
+                  emitted=None) -> None:
+    """The decode's stats, and the expert layers' routing counters
+    (``models/moe.py::ExpertCounters.read``), copied to the host once."""
     if stats is not None:
         _sync(dev)
         stats["decode_s"] = time.perf_counter() - t1
         stats["decode_steps"] = passes
         if emitted is not None:
             stats["decode_tokens"] = [int(e) for e in emitted.tolist()]
+        counters = getattr(model, "expert_counters", None)
+        if counters is not None:
+            stats.update(counters.read())
+
+
+def _replays_decode(model: LlamaModel, dev) -> bool:
+    """Whether greedy decoding replays a CUDA graph of one pass: for a
+    decoder that asks for it, on a card, with no profiler recording and
+    no forward hook on any of its modules."""
+    if dev.type != "cuda" or not getattr(model, "decode_graph", False):
+        return False
+    if torch.autograd._profiler_enabled():
+        return False
+    return not any(m._forward_hooks or m._forward_pre_hooks for m in model.modules())
+
+
+class _GraphedPass:
+    """One greedy pass captured as a CUDA graph on a side stream, in a
+    memory pool of its own.  The capture launches nothing; :meth:`replay`
+    runs the pass and adds to the expert layers' host count of decode
+    calls (``models/moe.py::ExpertCounters``) what the pass adds to it.
+    Other host-side launch counters (``decode_gemv.launches``) count the
+    capture once and no replay."""
+
+    def __init__(self, step, model: LlamaModel, dev):
+        self.counters = getattr(model, "expert_counters", None)
+        calls = self.counters.decode_layers if self.counters is not None else 0
+        self.graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            # thread-local: the loader's threads may use the runtime meanwhile
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                step()
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.calls = 0
+        if self.counters is not None:
+            self.calls = self.counters.decode_layers - calls
+            self.counters.decode_layers = calls
+
+    def replay(self) -> None:
+        self.graph.replay()
+        if self.counters is not None:
+            self.counters.decode_layers += self.calls
+
+
+def _replayed_greedy(model: LlamaModel, tokens, mask, cache, cur_id, cur_pos, done, s: int,
+                     max_new_tokens: int, eos_id: int) -> int:
+    """:func:`greedy_generate`'s loop on tensors it updates in place
+    (``tokens``, ``mask``, ``cache``, ``cur_id``, ``cur_pos``, ``done``),
+    the cache column a (B,) tensor; every pass after the first replays a
+    capture of it.  Returns the passes run."""
+    col = torch.full_like(done, s, dtype=torch.int64)
+
+    def step():
+        tokens.scatter_(1, (col - s)[:, None], torch.where(done, eos_id, cur_id)[:, None])
+        mask.scatter_(1, col[:, None], 1)
+        logits, _ = model(model.embed(cur_id[:, None]), mask[:, None, None, :].bool(),
+                          (cur_pos + 1)[:, None], cache=cache, cache_index=col, kv_valid=mask)
+        nxt = logits[:, -1].argmax(dim=-1).to(torch.int32)
+        done.logical_or_(cur_id == eos_id)
+        cur_id.copy_(torch.where(done, eos_id, nxt))
+        cur_pos.add_(1)
+        col.add_(1)
+
+    replay = None
+    t = 0
+    while t < max_new_tokens and not _finished(done):
+        with annotate("decode.pass"):
+            if replay is not None:
+                replay.replay()
+            else:
+                step()
+                if t + 1 < max_new_tokens:
+                    replay = _GraphedPass(step, model, done.device)
+        t += 1
+    return t
 
 
 @torch.inference_mode()
@@ -139,8 +236,9 @@ def greedy_generate(model: LlamaModel, prefix_embeds, prefix_mask,
     ``stats``, if given, receives ``prefill_s``, ``decode_s`` (wall
     seconds, the device synchronised at each boundary),
     ``prefill_segments``, ``decode_steps``
-    (decoder calls after the prefill) and ``prefill_logits`` (the f32
-    last-position logits that seed the decode).  The two phases run
+    (decoder calls after the prefill), ``prefill_logits`` (the f32
+    last-position logits that seed the decode) and, with routed experts,
+    ``moe_decode_experts`` and ``moe_prefill_imbalance``.  The two phases run
     inside profiler spans named ``prefill`` and ``decode``, the latter
     holding one ``decode.pass`` span per decoder call and a
     ``decode.sync`` span per host check."""
@@ -152,6 +250,11 @@ def greedy_generate(model: LlamaModel, prefix_embeds, prefix_mask,
     with annotate("decode"):
         tokens = torch.full((b, max_new_tokens), eos_id, dtype=torch.int32, device=dev)
         done = torch.zeros(b, dtype=torch.bool, device=dev)
+        if _replays_decode(model, dev):
+            t = _replayed_greedy(model, tokens, mask, cache, cur_id, cur_pos.clone(), done, s,
+                                 max_new_tokens, eos_id)
+            _decode_stats(stats, model, dev, t1, t)
+            return tokens
         t = 0
         while t < max_new_tokens and not _finished(done):
             with annotate("decode.pass"):
@@ -166,7 +269,7 @@ def greedy_generate(model: LlamaModel, prefix_embeds, prefix_mask,
                 cur_id = torch.where(done, eos_id, nxt)
                 cur_pos = cur_pos + 1
             t += 1
-        _decode_stats(stats, dev, t1, t)
+        _decode_stats(stats, model, dev, t1, t)
     return tokens
 
 
@@ -286,7 +389,7 @@ def grammar_generate(model: LlamaModel, prefix_embeds, prefix_mask, max_new_toke
                 g = torch.where(done, g_last, next_state[g_last, cur_id])
                 cur_pos = cur_pos + accept
             it += 1
-        _decode_stats(stats, dev, t1, it, emitted)
+        _decode_stats(stats, model, dev, t1, it, emitted)
     return tokens[:, :max_new_tokens]
 
 
@@ -381,5 +484,5 @@ def lookup_generate(model: LlamaModel, prefix_embeds, prefix_mask, max_new_token
                 cur_id = torch.where(done, eos_id, nxt)
                 cur_pos = cur_pos + accept
             it += 1
-        _decode_stats(stats, dev, t1, it, emitted)
+        _decode_stats(stats, model, dev, t1, it, emitted)
     return tokens[:, :max_new_tokens]

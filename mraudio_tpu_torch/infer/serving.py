@@ -76,12 +76,17 @@ class ContinuousBatcher:
     ``spec_width`` > 1 verifies ``spec_width - 1`` host-drafted tokens per
     slot and pass (exclusive with ``steps_per_dispatch`` > 1; runs at
     pipeline depth 1); ``pipeline_depth`` 2 reads each dispatch's tokens
-    one dispatch late.  Every setting gives the same tokens."""
+    one dispatch late.  Every setting gives the same tokens.  A decoder
+    with latent attention or routed experts raises."""
 
     @torch.inference_mode()
     def __init__(self, model: LlamaModel, prefix_len: int, max_new_tokens: int, eos_id: int,
                  max_slots: int = 4, max_prefill_batch: int = 0, steps_per_dispatch: int = 1,
                  spec_width: int = 1, pipeline_depth: int = 2):
+        if model.cfg.attention_kind != "gqa" or model.cfg.n_routed_experts:
+            raise NotImplementedError("the serving engine runs dense grouped-query decoders "
+                                      "only: latent attention and routed experts are served "
+                                      "by infer/generate.py's decoders")
         self.model = model
         self.device = model.final_norm.scale.device
         self.prefix_len = prefix_len

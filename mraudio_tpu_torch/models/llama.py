@@ -53,6 +53,7 @@ The JAX package's decoder:
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -70,6 +71,7 @@ from mraudio_tpu_torch.ops.attention import (chunked_attention, flash_attention,
                                              pack_int4, unpack_int4)
 from mraudio_tpu_torch.ops.gemv import decode_gemv, supports
 from mraudio_tpu_torch.parallel import comm
+from mraudio_tpu_torch.utils.profiling import annotate
 
 
 def quantize_kv(x: torch.Tensor):
@@ -627,6 +629,82 @@ class LlamaBlock(nn.Module):
                             positions.shape[1]), cache
 
 
+class ExpertBlock(nn.Module):
+    """A DeepSeek-V3 decoder layer (``attention_kind="mla"`` or routed
+    experts): pre-norm attention, latent (``models/mla.py``) or grouped-
+    query, then the expert layer (``models/moe.py``) or, below
+    ``first_k_dense_replace``, the dense MLP.  The latent attention and the
+    expert layer each run inside a profiler span named for the call:
+    ``mla.decode`` and ``moe.decode`` in a call of at most 16 queries over
+    a cache (a decode pass), ``mla.prefill`` and ``moe.prefill`` in any
+    other."""
+
+    def __init__(self, cfg: LlamaConfig, lora: Optional[LoraConfig], layer: int):
+        from mraudio_tpu_torch.models.mla import DECODE_QUERIES, MLAttention
+        from mraudio_tpu_torch.models.moe import MoeMlp
+
+        super().__init__()
+        self.decode_queries = DECODE_QUERIES
+        self.latent = cfg.attention_kind == "mla"
+        self.moe = cfg.moe_layer(layer)
+        self.input_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
+        self.attn = MLAttention(cfg) if self.latent else LlamaAttention(cfg, lora)
+        self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
+        self.mlp = MoeMlp(cfg) if self.moe else LlamaMlp(cfg, lora)
+
+    def forward(self, x, mask, positions, cache=None, cache_index=None,
+                kv_valid=None, causal=False, obs_start=None, dropout_key=None,
+                seq_parallel: bool = False):
+        phase = ("decode" if cache is not None and x.shape[1] <= self.decode_queries
+                 else "prefill")
+        h = self.input_norm(x)
+        with annotate(f"mla.{phase}") if self.latent else contextlib.nullcontext():
+            h, cache = self.attn(h, mask, positions, cache, cache_index, kv_valid=kv_valid,
+                                 causal=causal, obs_start=obs_start, dropout_key=dropout_key,
+                                 seq_parallel=seq_parallel)
+        x = x + h
+        h = self.post_attn_norm(x)
+        if self.moe:
+            with annotate(f"moe.{phase}"):
+                return x + self.mlp(h, decode=phase == "decode"), cache
+        return x + self.mlp(h, dropout_key, seq_parallel, positions.shape[1]), cache
+
+
+def refuse_unsupported(cfg: LlamaConfig, lora: Optional[LoraConfig] = None) -> None:
+    """Raise, naming the field, for a setting that the latent attention or
+    the expert layer does not support, rather than ignore it; a dense
+    grouped-query decoder passes whatever its other fields say."""
+    if cfg.attention_kind not in ("gqa", "mla"):
+        raise ValueError(f"unknown attention_kind={cfg.attention_kind!r}")
+    latent, moe = cfg.attention_kind == "mla", cfg.n_routed_experts > 0
+    if cfg.rope_interleave and not latent:
+        raise NotImplementedError("rope_interleave is read by attention_kind='mla' only")
+    if latent and (min(cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.v_head_dim) <= 0
+                   or cfg.qk_rope_head_dim <= 0 or cfg.qk_rope_head_dim % 2):
+        raise ValueError("attention_kind='mla' needs kv_lora_rank, qk_nope_head_dim, "
+                         "v_head_dim and an even qk_rope_head_dim above 0")
+    if moe and not (0 < cfg.num_experts_per_tok <= cfg.n_routed_experts
+                    and cfg.moe_intermediate_size > 0):
+        raise ValueError("n_routed_experts needs 0 < num_experts_per_tok <= n_routed_experts "
+                         "and moe_intermediate_size above 0")
+    refused = {
+        "kv_quant": latent and cfg.kv_quant != "none",
+        "kv_keep": latent and cfg.kv_keep > 0,
+        "attention_impl": latent and cfg.attention_impl != "chunked",
+        "mlp_seq_chunk": moe and cfg.mlp_seq_chunk > 0,
+        "quantization": (moe and cfg.quantization != "none")
+                        or (latent and cfg.quantization == "int4"),
+        "seq_shard": (latent or moe) and cfg.seq_shard,
+        "scan_layers": (latent or moe) and cfg.scan_layers,
+        "lora.enabled": (latent or moe) and lora is not None and lora.enabled,
+    }
+    for name, bad in refused.items():
+        if bad:
+            raise NotImplementedError(
+                f"{name} is not supported with attention_kind={cfg.attention_kind!r} and "
+                f"n_routed_experts={cfg.n_routed_experts}")
+
+
 class LlamaModel(nn.Module):
     """Decoder stack over ``inputs_embeds``.  ``mask`` is a bool
     attend-mask broadcastable to (B, heads, q_len, kv_len), read by the
@@ -637,14 +715,31 @@ class LlamaModel(nn.Module):
         super().__init__()
         if cfg.kv_quant not in ("none", "int8", "int4"):
             raise ValueError(f"unknown kv_quant={cfg.kv_quant!r}")
+        refuse_unsupported(cfg, lora)
         self.cfg = cfg
         self.dtype = torch_dtype(cfg.dtype)
         self.embed_tokens = Embed(cfg.padded_vocab_size, cfg.hidden_size)
-        self.layers = nn.ModuleList(LlamaBlock(cfg, lora) for _ in range(cfg.num_layers))
+        if cfg.attention_kind == "mla" or cfg.n_routed_experts:
+            self.layers = nn.ModuleList(ExpertBlock(cfg, lora, i) for i in range(cfg.num_layers))
+        else:
+            self.layers = nn.ModuleList(LlamaBlock(cfg, lora) for _ in range(cfg.num_layers))
         for i, block in enumerate(self.layers):
             for j, name in enumerate(LORA_PROJECTIONS):
                 parent = block.attn if hasattr(block.attn, name) else block.mlp
-                getattr(parent, name).dropout_id = (i, j)
+                if hasattr(parent, name):
+                    getattr(parent, name).dropout_id = (i, j)
+        # the expert layers' routing counters of the current batch
+        # (models/moe.py), read by infer/generate.py; None when dense
+        self.expert_counters = None
+        # greedy decode replays a CUDA graph of one pass (infer/generate.py)
+        self.decode_graph = cfg.attention_kind == "mla"
+        if cfg.n_routed_experts:
+            from mraudio_tpu_torch.models.moe import ExpertCounters
+
+            self.expert_counters = ExpertCounters()
+            for block in self.layers:
+                if block.moe:
+                    block.mlp.counters = self.expert_counters
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.lm_head = LlamaLinear(cfg.hidden_size, cfg.padded_vocab_size, cfg,
                                    quantize_ok=False)
@@ -781,7 +876,12 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int, device="cuda",
     package's stacked cache is its ``nn.scan`` plumbing.  The int4 leaves
     keep their (kv_heads, D/2) axes, which the JAX package merges into one
     only to spare a TPU lane tile its padding.  A tensor-parallel rank
-    passes ``LlamaModel.cache_cfg``, which counts its own KV heads."""
+    passes ``LlamaModel.cache_cfg``, which counts its own KV heads.  Latent
+    attention keeps its own layout (``models/mla.py``)."""
+    if cfg.attention_kind == "mla":
+        from mraudio_tpu_torch.models.mla import init_latent_cache
+
+        return init_latent_cache(cfg, batch, max_len, device)
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     if cfg.kv_quant in ("int8", "int4"):
         qdtype = torch.int8

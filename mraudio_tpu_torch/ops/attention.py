@@ -176,7 +176,10 @@ def chunked_attention(q, k, v, mask, causal: bool = True, block_k: int = 512,
       are dropped.  A tile's arithmetic then depends neither on how many
       queries share it, nor on how many batch rows there are, nor on
       which route (``q_offset`` or ``q_abs``) gives their columns;
-    * masked probabilities are exactly 0 and fully masked rows give 0.
+    * masked probabilities are exactly 0 and fully masked rows give 0;
+    * V may be narrower than Q and K (latent attention's 128-wide values
+      under 192-wide queries): the output takes V's width, the scale
+      Q's.
 
     Both products take operands in q's dtype with f32 accumulation.  No
     (B, H, S, KV) tensor is made, and a whole-cache conversion only for a
@@ -189,6 +192,9 @@ def chunked_attention(q, k, v, mask, causal: bool = True, block_k: int = 512,
     from the forward's row max and sum, chunk by chunk, so it too keeps
     no (B, H, S, KV) tensor."""
     if _grad_needed(q, k, v):
+        if v.shape[-1] != q.shape[-1]:
+            raise NotImplementedError("chunked_attention has a backward only for V as wide "
+                                      "as Q")
         if k_scale is not None or v_scale is not None or q_abs is not None or q_offset:
             raise NotImplementedError("chunked_attention has a backward only for unquantized "
                                       "K/V whose queries start at column 0 (training)")
@@ -201,6 +207,7 @@ def chunked_attention(q, k, v, mask, causal: bool = True, block_k: int = 512,
     else:
         b, h, s, d = q.shape
     dtype = q.dtype
+    dv = v.shape[-1] * (2 if kv_packed else 1)
     kv_axis = 1 if kv_bshd else 2
     kv_len = k.shape[kv_axis]
     sc_axis = 2 if scales_bhs else kv_axis
@@ -238,8 +245,8 @@ def chunked_attention(q, k, v, mask, causal: bool = True, block_k: int = 512,
         l_new = alpha * l_i + p.sum(dim=-1, keepdim=True)
         if v_scale is not None:
             p = p * scales_bhk(v_scale.narrow(sc_axis, kv_start, blk))[:, :, None, :]
-        pv = mm_f32(p.to(dtype).reshape(b * h, bq, blk), v_blk.reshape(b * h, blk, d))
-        return acc * alpha + pv.view(b, h, bq, d), m_new, l_new
+        pv = mm_f32(p.to(dtype).reshape(b * h, bq, blk), v_blk.reshape(b * h, blk, dv))
+        return acc * alpha + pv.view(b, h, bq, dv), m_new, l_new
 
     def one_pass(bi, q_row, q_pos):
         """Every key column of batch row ``bi`` at once: one softmax over
@@ -269,8 +276,8 @@ def chunked_attention(q, k, v, mask, causal: bool = True, block_k: int = 512,
         l_i = torch.nn.functional.pad(p, (0, -kv_len % 16)).sum(dim=-1, keepdim=True)
         if v_scale is not None:
             p = p * scales_bhk(row(v_scale))[:, :, None, :]
-        acc = mm_f32(p.to(dtype).reshape(h, rows, kv_len), v_all.reshape(h, kv_len, d))
-        return acc.view(1, h, rows, d), m_i, l_i
+        acc = mm_f32(p.to(dtype).reshape(h, rows, kv_len), v_all.reshape(h, kv_len, dv))
+        return acc.view(1, h, rows, dv), m_i, l_i
 
     num_full = kv_len // block_k
     tail_len = kv_len - num_full * block_k
@@ -302,7 +309,7 @@ def chunked_attention(q, k, v, mask, causal: bool = True, block_k: int = 512,
             acc, m_i, l_i = (torch.cat(t) for t in zip(*parts))
         else:
             q_blk, q_pos = q_blk.contiguous(), q_pos[:, None, :, None]    # (B|1, 1, bq, 1)
-            carry = (torch.zeros((b, h, bq, d), dtype=torch.float32, device=dev),
+            carry = (torch.zeros((b, h, bq, dv), dtype=torch.float32, device=dev),
                      torch.full((b, h, bq, 1), NEG_INF, dtype=torch.float32, device=dev),
                      torch.zeros((b, h, bq, 1), dtype=torch.float32, device=dev))
             for c in range(nf):

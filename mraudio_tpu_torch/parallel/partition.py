@@ -194,10 +194,15 @@ def shard_module_(module, mesh) -> dict:
     and switch its decoder to tensor parallelism (``models/llama.py``)
     and its encoder towers to gather-at-use; returns :func:`module_specs`.
     A decoder whose heads or MLP width do not tile the model axis
-    raises (the JAX package would replicate those leaves; the port's
+    raises, and so does one with latent attention or routed experts on a
+    model axis (the JAX package would replicate those leaves; the port's
     explicit collectives need every block sharded alike)."""
     from mraudio_tpu_torch.models.llama import LlamaAttention, LlamaLinear, LlamaMlp, LlamaModel
 
+    if mesh.model > 1 and any(isinstance(m, LlamaModel) and (
+            m.cfg.attention_kind != "gqa" or m.cfg.n_routed_experts) for m in module.modules()):
+        raise NotImplementedError("mesh.model > 1 is not supported with latent attention or "
+                                  "routed experts: neither is split over a model axis")
     specs = module_specs(module, mesh.shape)
     params = dict(module.named_parameters())
     for name, p in params.items():

@@ -32,6 +32,13 @@ followed by the benchmark metric (``portbench/metrics/``) that reads it:
 
 * ``prefill`` (``infer/generate.py``): the prefix through the decoder
   into the cache; ``prefill_ms.eval``;
+
+  * ``mla.prefill``, inside it (``models/llama.py::ExpertBlock``, latent
+    attention only): one layer's latent attention over the prefix, its
+    projections included; ``mla_prefill_ms.eval``;
+  * ``moe.prefill``, inside it (the same block, routed experts only): one
+    layer's expert layer, router, dispatch, shared experts and combine;
+    ``moe_prefill_ms.eval``;
 * ``decode`` (each decoder of ``infer/generate.py``): the decode loop;
   ``decode_ms_per_pass.eval`` reads its ``decode_s`` stat;
 
@@ -42,6 +49,13 @@ followed by the benchmark metric (``portbench/metrics/``) that reads it:
   * ``decode.sync``, inside it: the per-pass check that every row has
     finished, where the host waits for the device;
     ``decode_sync_ms_per_pass.eval``;
+  * ``mla.decode`` and ``moe.decode``, inside ``decode.pass``: one layer's
+    latent attention over the latent cache and one layer's expert layer
+    in a decode pass (a call of at most 16 queries over a cache), once
+    per layer that has one; ``mla_decode_ms_per_pass.eval`` and
+    ``moe_decode_ms_per_pass.eval``.  A decoder whose greedy passes
+    replay a CUDA graph opens them only in its first pass; under a
+    profiler it decodes eagerly, so a traced pass has them all;
 
 * ``loss_fwd_bwd`` and ``optimizer`` (``train/trainer.py``): one
   micro-step's loss and gradients, and the update; no benchmark cell

@@ -33,11 +33,31 @@ from mraudio_tpu.models import videollama as jvl
 from mraudio_tpu.train.optim import merge_params as j_merge
 from mraudio_tpu.train.optim import split_trainable as j_split
 from mraudio_tpu.utils.flops import videollama_flops as j_videollama_flops
-from mraudio_tpu_torch.config import AudioFrontendConfig, full_model_config
+from mraudio_tpu_torch.config import AudioFrontendConfig, LlamaConfig, full_model_config
 from mraudio_tpu_torch.models import videollama as tvl
 from mraudio_tpu_torch.models.convert_jax import flax_params, init_random_, torch_name
 from mraudio_tpu_torch.utils.flops import videollama_flops
 from test_torch_train_loss import jax_tree, train_batch
+
+
+# the port's LlamaConfig fields that the JAX package's lacks (latent
+# attention and sparse experts), each defaulting to the dense decoder
+PORT_ONLY_LLM_FIELDS = ("attention_kind", "kv_lora_rank", "qk_nope_head_dim",
+                        "qk_rope_head_dim", "v_head_dim", "rope_interleave", "n_routed_experts",
+                        "num_experts_per_tok", "n_shared_experts", "moe_intermediate_size",
+                        "first_k_dense_replace", "routed_scaling_factor", "norm_topk_prob")
+
+
+def jax_dict(cfg) -> dict:
+    """``dataclasses.asdict`` of a port config holding an ``llm``, with the
+    decoder fields the JAX package lacks taken out once they are shown to
+    hold their dense defaults."""
+    d = dataclasses.asdict(cfg)
+    default = LlamaConfig()
+    for name in PORT_ONLY_LLM_FIELDS:
+        assert d["llm"].pop(name) == getattr(default, name), name
+    return d
+
 
 torch.set_num_threads(1)
 
@@ -201,7 +221,7 @@ def test_connector_token_count():
 def test_videollama21_av_config_equals_jax():
     for n_frms in (60, 20, 7):
         ours = tvl.videollama21_av_config(n_frms)
-        assert dataclasses.asdict(ours) == dataclasses.asdict(jvl.videollama21_av_config(n_frms))
+        assert jax_dict(ours) == dataclasses.asdict(jvl.videollama21_av_config(n_frms))
     cfg = tvl.videollama21_av_config(60)
     assert (cfg.vit.image_size, cfg.vit.num_patches, cfg.vit.use_class_token) == (384, 729, False)
     assert (cfg.llm.num_heads, cfg.llm.num_kv_heads, cfg.llm.quantization) == (28, 4, "none")
@@ -219,7 +239,7 @@ def test_videollama_flops_equal_jax(which):
     else:
         ours, theirs = tvl.videollama21_av_config(60), jvl.videollama21_av_config(60)
         prefill = 15 * 729 + 60 + 128
-    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    assert jax_dict(ours) == dataclasses.asdict(theirs)
     got = videollama_flops(ours, AudioFrontendConfig(), 60, 4, prefill, 64)
     want = j_videollama_flops(theirs, JAudioCfg(), 60, 4, prefill, 64)
     assert got == want and got["total"] > 0

@@ -43,6 +43,7 @@ from mraudio_tpu_torch.train.checkpoint import load_checkpoint
 from test_torch_convert_weights import _fill
 from test_torch_train_loss import jax_tree
 from test_torch_videollama_weights import _ckpt
+from test_torch_videollama import jax_dict
 
 torch.set_num_threads(1)
 
@@ -73,7 +74,7 @@ def test_factory_dispatch():
     model = build_model(cfg.replace(model_name="VideoLLaMA"), "cpu")
     assert isinstance(model, tvl.VideoLLaMA)
     jcfg = JRunConfig(model_name="VideoLLaMA", model=j_tiny(), data=j_tiny_data(n_frms=4))
-    assert model.cfg.to_dict() == j_build_model(jcfg).cfg.to_dict()
+    assert jax_dict(model.cfg) == j_build_model(jcfg).cfg.to_dict()
 
 
 @pytest.fixture(scope="module")
